@@ -1,0 +1,135 @@
+"""The training step: ray sampling → render → losses → Adam (counterpart of
+``neuraludf_tpu/train/step.py``, stage-1 path).
+
+``build_loss_fn`` gives the total loss and the 19 ``METRIC_KEYS`` of one
+iteration; ``build_step_body`` adds the backward pass and the Adam update.
+The random draws of an iteration (pixels ``px``/``py`` and the render noise
+``t_rand``/``t_r``) come from a ``torch.Generator`` or are
+given in ``noise``. The runner loops over steps eagerly and moves the
+metrics of a whole window to the host at once.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..config import Config
+from ..data.dataset import near_far_from_sphere, sample_random_rays
+from ..losses.color import ColorLossWeights, bce_mask_loss, color_loss, psnr
+from ..render.renderer import RenderOptions, UDFRenderer
+from .optim import adam_step, leaves, make_lr_fn, make_trainable_fn
+
+Params = Dict[str, Any]
+
+METRIC_KEYS: List[str] = [
+    "loss", "color_total_loss", "color_base_loss", "color_loss",
+    "color_pixel_loss", "color_patch_loss", "mask_loss", "gradient_error",
+    "gradient_error_near_surface", "sparse_error", "psnr", "variance",
+    "beta", "gamma", "udf_min", "udf_mean", "weight_sum", "weight_sum_fg_bg",
+    "blend_strip_cover",
+]
+
+
+def build_loss_fn(cfg: Config, renderer: UDFRenderer) -> Callable:
+    """loss_fn(params, scene, img_idx, sched, generator=None, noise=None)
+    -> (total loss, metrics dict of 0-dim tensors). Stage 1: no pixel or
+    patch blending, like the JAX step built with blending=False."""
+    tcfg, ccfg = cfg.train, cfg.color_loss
+    use_mask_loss = tcfg.mask_weight > 0
+    opts = RenderOptions(perturb=cfg.model.udf_renderer.perturb > 0)
+
+    def loss_fn(params: Params, scene, img_idx: int, sched: Dict[str, float],
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None):
+        noise = noise or {}
+        sample = sample_random_rays(scene, img_idx, tcfg.batch_size, generator=generator,
+                                    px=noise.get("px"), py=noise.get("py"))
+        data = sample["rays"]
+        rays_o, rays_d = data[:, :3], data[:, 3:6]
+        true_rgb, mask = data[:, 6:9], data[:, 9:10]
+        mask = (mask > 0.5).to(torch.float32)
+        near, far = near_far_from_sphere(rays_o, rays_d)
+
+        ret = renderer.render(
+            params, rays_o, rays_d, near, far, generator=generator, noise=noise,
+            cos_anneal_ratio=sched["cos_anneal_ratio"],
+            flip_saturation=sched["flip_saturation"],
+            background_rgb=(torch.ones((1, 3), device=rays_o.device)
+                            if tcfg.use_white_bkgd else None),
+            opts=opts)
+
+        weight_sum = ret["weight_sum"]
+        pixel_mask = mask if use_mask_loss else None
+        weights = ColorLossWeights(color_base=sched["color_base_weight"],
+                                   color=sched["color_weight"],
+                                   color_pixel=sched["color_pixel_weight"],
+                                   color_patch=sched["color_patch_weight"])
+        closs = color_loss(weights, ret["color_base"], ret["color"], true_rgb,
+                           ret["color_pixel"], pixel_mask, ret["patch_colors"], None, None,
+                           patch_loss_type=ccfg.patch_loss_type,
+                           h_patch_size=ccfg.h_patch_size)
+
+        mask_l = bce_mask_loss(weight_sum, mask)
+        total = (closs["loss"]
+                 + mask_l * sched["mask_weight"]
+                 + ret["gradient_error_near_surface"] * sched["igr_ns_weight"]
+                 + ret["sparse_error"] * sched["sparse_weight"]
+                 + ret["gradient_error"] * sched["igr_weight"])
+
+        with torch.no_grad():
+            mask_sum = mask.sum() + 1e-5
+            ray_mask = (mask[:, 0] > 0.5).to(torch.float32)
+            udf_min_per_ray = ret["udf"].min(dim=1).values
+            udf_min = torch.sum(udf_min_per_ray * ray_mask) / torch.clamp(ray_mask.sum(), min=1.0)
+            metrics = {
+                "loss": total,
+                "color_total_loss": closs["loss"],
+                "color_base_loss": closs["color_base_loss"],
+                "color_loss": closs["color_loss"],
+                "color_pixel_loss": closs["color_pixel_loss"],
+                "color_patch_loss": closs["color_patch_loss"],
+                "mask_loss": mask_l,
+                "gradient_error": ret["gradient_error"],
+                "gradient_error_near_surface": ret["gradient_error_near_surface"],
+                "sparse_error": ret["sparse_error"],
+                "psnr": psnr(ret["color"], true_rgb, mask),
+                "variance": torch.mean(ret["variance"]),
+                "beta": torch.mean(ret["beta"]),
+                "gamma": torch.mean(ret["gamma"]),
+                "udf_min": udf_min,
+                "udf_mean": torch.mean(ret["udf"]),
+                "weight_sum": torch.sum(ret["weight_sum"] * mask) / mask_sum,
+                "weight_sum_fg_bg": torch.sum(ret["weight_sum_fg_bg"] * mask) / mask_sum,
+                "blend_strip_cover": ret["blend_strip_cover"],
+            }
+            metrics = {k: torch.as_tensor(v).detach().reshape(()) for k, v in metrics.items()}
+        return total, metrics
+
+    return loss_fn
+
+
+def param_grads(total: torch.Tensor, params: Params) -> Dict[tuple, torch.Tensor]:
+    """d total / d leaf for every parameter leaf (None where unused)."""
+    paths, tensors = zip(*leaves(params))
+    grads = torch.autograd.grad(total, tensors, allow_unused=True)
+    return dict(zip(paths, grads))
+
+
+def build_step_body(cfg: Config, renderer: UDFRenderer) -> Callable:
+    """body(params, opt_state, scene, img_idx, sched, generator=None,
+    noise=None) -> metrics; updates params and opt_state in place."""
+    loss_fn = build_loss_fn(cfg, renderer)
+    bcfg = cfg.model.beta_network
+
+    def body(params, opt_state, scene, img_idx, sched, generator=None, noise=None):
+        total, metrics = loss_fn(params, scene, img_idx, sched, generator, noise)
+        grads = param_grads(total, params)
+        lr_fn = make_lr_fn(sched["lr_geo"], sched["lr_main"], sched["lr_main"])
+        trainable_fn = make_trainable_fn(bcfg, sched["variance_trainable"],
+                                         sched["beta_trainable"])
+        adam_step(params, grads, opt_state, lr_fn, trainable_fn)
+        return metrics
+
+    return body
