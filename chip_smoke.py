@@ -6,7 +6,8 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. build ``neuraludf_tpu_torch/csrc/fused_distance.cu`` for sm_90a;
+2. build ``neuraludf_tpu_torch/csrc/fused_distance.cu`` and
+   ``csrc/strip_sample.cu`` for sm_90a, both nvcc processes started together;
 3. kernels K1 (fused distance forward) and K2 (its second-order backward)
    at the main path's width (58,368 points, the 8x256 net of
    ``confs/synthetic_smoke.conf``, its ``abs`` head), both tiers, against the
@@ -15,10 +16,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
 4. the synthetic sphere scene (16 views, 600x800) with the port's generator;
 5. one training loss and its gradients on a small batch through the kernels
    (tier "highest") against the plain autograd path;
-6. the main path: ``Runner.train`` on ``confs/synthetic_smoke.conf`` at full
-   width for a few windows, launch counts of K1 and K2 read around it;
-7. CUDA-event times of K1, K2 and their plain versions, and the host-clock
-   time of a steady training step.
+6. the stage-1 main path: ``Runner.train`` on ``confs/synthetic_smoke.conf``
+   at full width for a few windows, launch counts of K1 and K2 read around
+   it; its last checkpoint is what the finetune starts from;
+7. kernel K3 (the warp sampler) at the finetune's shape (8 views of the
+   scene, 600x800; positions [8, 2048, 976]: clustered in-image positions
+   and a block of out-of-image, exact-border, huge and NaN ones) against its
+   plain version and against the one PyTorch call that computes the same
+   function, ``F.grid_sample(padding_mode="border")``;
+8. one blending loss and its gradients on a small batch with
+   ``warp_sampler="strip"`` through K3 against the same through K3's plain
+   version;
+9. the finetune main path: a second ``Runner`` on
+   ``confs/udf_dtu_blending_ft.conf`` (``is_finetune``) loads the stage-1
+   checkpoint and trains 100 steps at full width; K1, K2 and K3 must each
+   launch once a step, the pixel and patch losses must be nonzero;
+10. CUDA-event times of K1, K2, K3, their plain versions and K3's library
+    call; the host-clock time and the profile of a steady step of each path.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -40,10 +54,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 BUILD = ROOT / "build"
 CONF = ROOT / "confs" / "synthetic_smoke.conf"
+FT_CONF = ROOT / "confs" / "udf_dtu_blending_ft.conf"
 
 N_POINTS = 512 * 114  # rays x (64 + 50 up-sampled) samples of one training step
 N_OTHER_HEADS = 4096  # points for the heads the main path does not use
-N_WINDOWS = 4  # training windows on the main path (50 iterations each)
+N_WINDOWS = 4  # training windows on the stage-1 main path (50 iterations each)
+FT_STEPS = 100  # steps of the finetune main path
+# the finetune's schedule lengths (50,000 steps as published) cut like its
+# depth, by 500: warm-up 5000 -> 10, anneal 25000 -> 50, fix_geo 500 -> 1
+FT_SCHEDULE = {"train__warm_up_end": 10, "train__anneal_end": 50, "train__fix_geo_end": 1}
+K3_SHAPE = (8, 2048, 976)  # views, rays x chunks (512 x 4), chunk x (121 + 1) positions
+K3_FLOPS_PER_POSITION = 29  # 8 for the weights, 7 per channel for the blend
 N_TIMED_STEPS = 20
 REPS = 10  # kernel launches per timing
 
@@ -66,6 +87,20 @@ TOL = {
     ("default", "autograd"): 1e-1,
 }
 TOL_STEP = 1e-3  # small-batch loss and gradients, kernels ("highest") vs plain
+# K3, max |kernel - reference| over the colours whose mask is true. Against
+# the plain version: the same f32 formula on the same absolute positions;
+# nvcc contracts the four products into FMAs. Against F.grid_sample: it takes
+# normalised positions (2x/(W-1) - 1) and un-normalises them, which moves a
+# position by ~1e-4 px at x ~ 800, and the sphere's silhouette has a contrast
+# of ~1 per pixel.
+TOL_K3 = {"plain": 1e-5, "library": 5e-4}
+# Small-batch blending loss and gradients, K3 vs its plain version (whose
+# colours differ by ~2e-7). With the L1 patch loss the gradients follow to
+# f32 rounding. The SSIM loss computes a patch's variance as E[x^2] - mu^2; on
+# the sphere's smooth shading the variance is ~1e-5 of values ~0.5, and that
+# cancellation turns the 2e-7 into 3e-3 of a colour-net leaf's gradient
+# (measured; the pixel-blending term alone agrees to 2e-7).
+TOL_STEP_BLENDING = {"ssim": 1e-2, "l1": TOL_STEP}
 
 
 def log(msg: str) -> None:
@@ -224,28 +259,194 @@ def check_small_step(cfg, dataset, dev):
         raise AssertionError("the kernels' training loss or gradients disagree with the plain path")
 
 
-def train_main_path(runner, cfg, exp_dir, fd):
-    """Runner.train with the kernels' launch counts set to 0 just before and
-    read just after; checks the loss and that K1/K2 ran in every step."""
-    fd.fused_forward.launches = fd.fused_backward.launches = 0
+def k3_inputs(scene, dev):
+    """8 source views of the scene and positions of the finetune's shape,
+    made from a seed: clusters like a ray's patches, and in the first rows
+    out-of-image, exact-border, huge and NaN positions."""
+    from neuraludf_tpu_torch.data.dataset import ref_src_info
+
+    images = ref_src_info(scene, 0)[3]  # [8, 3, H, W], channel last in memory
+    v, _, h, w = images.shape
+    _, nw, p = K3_SHAPE
+    if v != K3_SHAPE[0]:
+        raise AssertionError(f"expected {K3_SHAPE[0]} source views, got {v}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    cx, cy = rand(v, nw, 1) * (w - 1), rand(v, nw, 1) * (h - 1)
+    gx = cx + (rand(v, nw, p) - 0.5) * 60.0
+    gy = cy + (rand(v, nw, p) - 0.5) * 60.0  # clusters near a border reach outside
+    nan = float("nan")
+    gx[:, 0, :12] = torch.tensor([0.0, w - 1.0, 0.0, w - 1.0, -0.5, w - 0.5, 1e11, -1e11, nan,
+                                  17.0, 3.25, w - 1.0], device=dev)
+    gy[:, 0, :12] = torch.tensor([0.0, h - 1.0, h - 1.0, 0.0, 10.0, 10.0, 5.0, -1e11, 7.0, nan,
+                                  h - 1.0, 8.5], device=dev)
+    gx[:, 1], gy[:, 1] = -1e11, 1e11
+    gx[:, 2], gy[:, 2] = nan, nan
+    return images, gx, gy
+
+
+def library_sample(images, gx, gy):
+    """The one PyTorch call that computes K3's colours; timed and compared
+    here, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    _, _, h, w = images.shape
+    grid = torch.stack([2.0 * gx / (w - 1) - 1.0, 2.0 * gy / (h - 1) - 1.0], dim=-1)
+    return F.grid_sample(images, grid, mode="bilinear", padding_mode="border",
+                         align_corners=True)  # [V, 3, NW, P]
+
+
+def check_strip_sample(scene, dev):
+    """K3 against its plain version and the library call; returns the
+    errors and the inputs."""
+    from neuraludf_tpu_torch.ops import strip_sample as ss
+
+    images, gx, gy = k3_inputs(scene, dev)
+    colors, mask = ss.strip_sample(images, gx, gy)
+    torch.cuda.synchronize()
+    ref, ref_mask = ss.strip_sample_plain(images, gx, gy)
+    lib = library_sample(images, gx, gy).permute(0, 2, 1, 3)
+    if colors.shape != ref.shape or colors.dtype != torch.float32 or mask.dtype != torch.bool:
+        raise AssertionError(f"K3 output {tuple(colors.shape)} {colors.dtype} {mask.dtype}")
+    if not bool(torch.isfinite(colors).all()):
+        raise AssertionError("K3: non-finite colour")
+    if not torch.equal(mask, ref_mask):
+        raise AssertionError("K3: mask differs from the plain version's")
+    m = mask[:, :, None, :].expand_as(colors)
+    errors = {"plain": float((colors - ref)[m].abs().max()),
+              "library": float((colors - lib)[m].abs().max()),
+              "plain_everywhere": float((colors - ref).abs().max())}
+    share = float(mask.float().mean())
+    log(f"  K3 vs plain   max_abs_err={errors['plain']:.3e} (mask true; "
+        f"{errors['plain_everywhere']:.3e} everywhere) tol={TOL_K3['plain']:.0e}")
+    log(f"  K3 vs library max_abs_err={errors['library']:.3e} tol={TOL_K3['library']:.0e}; "
+        f"masks equal, in-image share {share:.3f}, all colours finite")
+    if errors["plain"] > TOL_K3["plain"] or errors["library"] > TOL_K3["library"]:
+        raise AssertionError(f"K3 outside tolerance: {errors}")
+    if errors["plain_everywhere"] > TOL_K3["plain"]:
+        raise AssertionError("K3 differs from the plain version where the mask is false")
+    if not 0.2 < share < 1.0:
+        raise AssertionError(f"K3 check: in-image share {share}, both sides must be hit")
+    return errors, dict(images=images, gx=gx, gy=gy)
+
+
+def check_small_blending_step(cfg, dataset, dev):
+    """One blending loss and its gradients on a 64-ray batch with
+    warp_sampler='strip': through K3 against the same through K3's plain
+    version (K1/K2 at tier 'highest' on both sides), same params and draws;
+    with the configuration's SSIM patch loss and with the L1 patch loss."""
+    from neuraludf_tpu_torch.ops import strip_sample as ss
+    from neuraludf_tpu_torch.render import renderer as renderer_mod
+    from neuraludf_tpu_torch.train import step as tstep
+    from neuraludf_tpu_torch.train.runner import init_params
+
+    rcfg = dataclasses.replace(cfg.model.udf_renderer, warp_sampler="strip")
+    ucfg = dataclasses.replace(cfg.model.udf_network, fused_core="on", fused_precision="highest")
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, batch_size=64),
+        model=dataclasses.replace(cfg.model, udf_renderer=rcfg, udf_network=ucfg))
+    sched = {"cos_anneal_ratio": 0.5, "flip_saturation": 0.0, "color_base_weight": 0.01,
+             "color_weight": 1.0, "color_pixel_weight": 0.1, "color_patch_weight": 0.1,
+             "mask_weight": 0.0, "igr_ns_weight": 0.0, "sparse_weight": 0.0, "igr_weight": 0.1}
+    kernel_entry = renderer_mod.strip_sample
+    for loss_type, tol in TOL_STEP_BLENDING.items():
+        c = dataclasses.replace(cfg, color_loss=dataclasses.replace(cfg.color_loss,
+                                                                    patch_loss_type=loss_type))
+        results = []
+        for sampler in (kernel_entry, ss.strip_sample_plain):
+            renderer_mod.strip_sample = sampler  # the reference pass swaps in the plain version
+            try:
+                params = init_params(torch.Generator().manual_seed(1), c, dev)
+                loss_fn = tstep.build_loss_fn(c, renderer_mod.UDFRenderer(c.model),
+                                              blending=True)
+                gen = torch.Generator(device=dev).manual_seed(2)
+                before = ss.strip_sample.launches
+                total, metrics = loss_fn(params, dataset.scene, 3, sched, gen)
+                launched = ss.strip_sample.launches - before
+                results.append((total.detach(), tstep.param_grads(total, params), metrics))
+            finally:
+                renderer_mod.strip_sample = kernel_entry
+            if launched != (1 if sampler is kernel_entry else 0):
+                raise AssertionError(f"warp_sampler='strip' launched K3 {launched} times")
+        (l_k, g_k, m_k), (l_p, g_p, _) = results
+        err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+        worst, leaf = max((rel_err(g_k[p], g_p[p])[1], "/".join(p)) for p in g_p
+                          if g_p[p] is not None)
+        log(f"  blending loss ({loss_type} patches) K3={float(l_k):.6f} plain={float(l_p):.6f} "
+            f"rel={err:.2e}; grads worst rel={worst:.2e} ({leaf}) tol={tol:.0e}; pixel loss "
+            f"{float(m_k['color_pixel_loss']):.4f}, patch loss "
+            f"{float(m_k['color_patch_loss']):.4f}, cover {float(m_k['blend_strip_cover']):.3f}")
+        if not (err <= TOL_STEP and worst <= tol):
+            raise AssertionError("the blending loss or its gradients through K3 disagree with "
+                                 "the plain version")
+        if not (float(m_k["color_pixel_loss"]) > 0 and float(m_k["color_patch_loss"]) > 0):
+            raise AssertionError("a blending loss term is zero")
+
+
+def train_main_path(runner, cfg, exp_dir, counters, on_path):
+    """Runner.train with the launch counts of ``counters`` (name -> kernel
+    entry) set to 0 just before and read just after; checks the loss, that
+    every kernel of ``on_path`` ran once in every step and that no other
+    ran. Returns the launches and the metric rows of the run."""
+    for k in counters.values():
+        k.launches = 0
+    first = runner.iter_step
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     runner.train()
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    launches = {"K1": fd.fused_forward.launches, "K2": fd.fused_backward.launches}
-    n_steps = runner.iter_step
+    launches = {name: k.launches for name, k in counters.items()}
+    n_steps = runner.iter_step - first
     log_path = exp_dir / cfg.general.expname / "logs" / "metrics.jsonl"
-    losses = [json.loads(line)["loss"] for line in log_path.read_text().splitlines()][-n_steps:]
+    rows = [json.loads(line) for line in log_path.read_text().splitlines()][-n_steps:]
+    losses = [r["loss"] for r in rows]
     means = [sum(losses[i:i + 50]) / 50 for i in range(0, n_steps, 50)]
-    log(f"[train] {n_steps} steps in {train_s:.1f} s; launches {launches}; "
-        f"window mean losses {['%.5f' % m for m in means]}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError("non-finite training loss")
-    if launches["K1"] != n_steps or launches["K2"] != n_steps:
-        raise AssertionError(f"K1/K2 did not run once in every step: {launches}, {n_steps} steps")
+    log(f"[train] {cfg.general.expname}: {n_steps} steps in {train_s:.1f} s; launches {launches}; "
+        f"window mean losses {['%.5f' % m for m in means]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if n_steps <= 0 or not all(math.isfinite(v) for r in rows for k, v in r.items()
+                               if k.endswith(("loss", "error"))):
+        raise AssertionError("no step ran, or a non-finite loss term")
+    if any(n != (n_steps if name in on_path else 0) for name, n in launches.items()):
+        raise AssertionError(f"kernels {on_path} did not run once in every step, or another "
+                             f"ran: {launches}, {n_steps} steps")
     if not means[-1] <= means[0]:
         raise AssertionError(f"training loss did not decrease: window means {means}")
-    return launches
+    return launches, rows
+
+
+def check_finetune_rows(rows):
+    """The blending terms really contributed in every finetune step."""
+    for key in ("color_pixel_loss", "color_patch_loss"):
+        if not all(r[key] > 0.0 for r in rows):
+            raise AssertionError(f"{key} is zero in a finetune step")
+    if not all(0.0 < r["blend_strip_cover"] <= 1.0 for r in rows):
+        raise AssertionError("blend_strip_cover outside (0, 1]")
+    mean = lambda key: sum(r[key] for r in rows) / len(rows)
+    log(f"[train] finetune means: pixel loss {mean('color_pixel_loss'):.4f}, patch loss "
+        f"{mean('color_patch_loss'):.4f}, blend_strip_cover {mean('blend_strip_cover'):.4f}, "
+        f"psnr {mean('psnr'):.2f}")
+
+
+def time_strip_sample(k3in, card):
+    """CUDA-event times of K3, its plain version and the library call, and
+    the bytes and operations K3 must move and do on these inputs."""
+    from neuraludf_tpu_torch.ops import strip_sample as ss
+
+    images, gx, gy = k3in["images"], k3in["gx"], k3in["gy"]
+    n = gx.numel()
+    nbytes = images.numel() * 4 + 2 * n * 4 + 3 * n * 4 + n  # images, gx, gy; colours, mask
+    flops = K3_FLOPS_PER_POSITION * n
+    with torch.no_grad():
+        times = {"K3": cuda_ms(lambda: ss.strip_sample(images, gx, gy)),
+                 "K3plain": cuda_ms(lambda: ss.strip_sample_plain(images, gx, gy), 3),
+                 "K3library": cuda_ms(lambda: library_sample(images, gx, gy))}
+    log(f"[time] K3 kernel {times['K3']:.3f} ms  plain {times['K3plain']:.3f} ms  library "
+        f"(F.grid_sample) {times['K3library']:.3f} ms  bound "
+        f"{bound_ms(nbytes, flops, 'highest'):.4f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP f32) at {n} positions  [{card}]")
+    return times, nbytes, flops
 
 
 def time_kernels(ucfg, kin, card):
@@ -283,9 +484,15 @@ def bound_ms(nbytes: float, flops: float, tier: str) -> float:
     return max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[tier]) * 1e3
 
 
+def steady_body(runner):
+    """The step body and schedule values of the runner's current iteration."""
+    s = runner._schedules_at(runner.iter_step)
+    return runner.step_body(s), dataclasses.asdict(s)
+
+
 def time_step(runner, card) -> float:
     """Host-clock time of a steady training step, ended by a synchronize."""
-    body, sched = runner.step_body(), dataclasses.asdict(runner._schedules_at(runner.iter_step))
+    body, sched = steady_body(runner)
     run = lambda i: body(runner.params, runner.opt_state, runner.dataset.scene,
                          i % runner.dataset.n_images, sched, runner.generator)
     run(0)
@@ -295,17 +502,18 @@ def time_step(runner, card) -> float:
         run(i)
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) / N_TIMED_STEPS * 1e3
-    log(f"[time] steady training step {step_ms:.2f} ms = "
+    log(f"[time] {runner.cfg.general.expname}: steady training step {step_ms:.2f} ms = "
         f"{runner.cfg.train.batch_size / step_ms * 1e3:.0f} rays/s  [{card}]")
     return step_ms
 
 
-def profile_step(runner, n_steps: int = 5, top: int = 14) -> None:
+def profile_step(runner, n_steps: int = 5, top: int = 14) -> dict:
     """Device time by kernel over a few steady steps (torch.profiler), and
-    the share of the window the device was busy."""
+    the share of the window the device was busy. Returns kernel name ->
+    (ms per step, launches per step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    body, sched = runner.step_body(), dataclasses.asdict(runner._schedules_at(runner.iter_step))
+    body, sched = steady_body(runner)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -322,19 +530,38 @@ def profile_step(runner, n_steps: int = 5, top: int = 14) -> None:
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log("[profile] the profiler saw no device time: not measured")
-        return
-    log(f"[profile] per step: {sum(r[1] for r in rows):.0f} kernel launches, device busy "
+        return {}
+    log(f"[profile] {runner.cfg.general.expname} per step: {sum(r[1] for r in rows):.0f} "
+        f"kernel launches, device busy "
         f"{busy:.2f} ms of {wall_ms / n_steps:.2f} ms wall (idle share "
         f"{1 - busy * n_steps / wall_ms:.2f}, under the profiler)")
-    for ms, count, key in rows[:top]:
-        log(f"  {ms:8.3f} ms  x{count:<6.0f} {key[:90]}")
+    # the top rows, and the port's own kernels wherever they rank
+    own = ("gemm_kernel", "colsum_kernel", "pe_kernel", "ss_kernel")
+    for rank, (ms, count, key) in enumerate(rows):
+        if rank < top or key.startswith(own) or key.startswith(tuple("void " + o for o in own)):
+            log(f"  {ms:8.3f} ms  x{count:<6.0f} {key[:90]}")
+    return {key: (ms, count) for ms, count, key in rows}
+
+
+def profile_difference(base: dict, other: dict, top: int = 10) -> None:
+    """The kernels whose device time per step differs most between two
+    profiles: what the finetune step adds to the stage-1 step."""
+    if not base or not other:
+        return
+    diff = sorted(((other.get(k, (0.0, 0))[0] - base.get(k, (0.0, 0))[0],
+                    other.get(k, (0.0, 0))[1] - base.get(k, (0.0, 0))[1], k)
+                   for k in set(base) | set(other)), reverse=True)
+    log(f"[profile] finetune step minus stage-1 step: "
+        f"{sum(d[0] for d in diff):+.2f} ms, {sum(d[1] for d in diff):+.0f} launches; largest:")
+    for ms, count, key in diff[:top]:
+        log(f"  {ms:+8.3f} ms  x{count:<+6.0f} {key[:90]}")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
-    if not (ROOT / "neuraludf_tpu_torch").is_dir() or not CONF.is_file():
+    if not (ROOT / "neuraludf_tpu_torch").is_dir() or not CONF.is_file() or not FT_CONF.is_file():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -343,7 +570,9 @@ def main() -> int:
 
     from neuraludf_tpu_torch import config as config_mod
     from neuraludf_tpu_torch.data.synthetic import generate_scene
+    from neuraludf_tpu_torch.ops import build
     from neuraludf_tpu_torch.ops import fused_distance as fd
+    from neuraludf_tpu_torch.ops import strip_sample as ss
     from neuraludf_tpu_torch.train.runner import Runner
 
     dev = torch.device("cuda:0")
@@ -352,17 +581,27 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.time()
-    lib = fd.library()
-    log(f"[build] fused_distance.cu -> {lib._name} in {time.time() - t0:.1f} s")
+    built = build.compile_sources(["fused_distance", "strip_sample"])  # in parallel
+    fd.library(), ss.library()
+    log(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in built.items())} "
+        f"in {time.time() - t0:.1f} s")
 
     scene_dir = BUILD / "smoke_scene" / "sphere"
     exp_dir = BUILD / "smoke_exp"
-    cfg = config_mod.load(str(CONF), case="sphere", dataset__data_dir=str(scene_dir),
-                          general__base_exp_dir=str(exp_dir),
-                          train__end_iter=50 * N_WINDOWS)
-    ucfg = cfg.model.udf_network
+    common = dict(case="sphere", dataset__data_dir=str(scene_dir),
+                  general__base_exp_dir=str(exp_dir))
+    n_stage1 = 50 * N_WINDOWS
+    cfg = config_mod.load(str(CONF), train__end_iter=n_stage1, train__save_freq=n_stage1,
+                          **common)
+    ft_cfg = config_mod.load(str(FT_CONF), train__end_iter=FT_STEPS, **FT_SCHEDULE, **common)
+    ucfg, rcfg = cfg.model.udf_network, ft_cfg.model.udf_renderer
     log(f"[config] udf net {ucfg.n_layers}x{ucfg.d_hidden}, skip {ucfg.skip_in}, "
-        f"fused_precision={ucfg.fused_precision}, batch {cfg.train.batch_size}")
+        f"fused_precision={ucfg.fused_precision}, batch {cfg.train.batch_size}; finetune: "
+        f"h_patch_size {rcfg.h_patch_size}, blend_top_k {rcfg.blend_top_k}, blend_chunk "
+        f"{rcfg.blend_chunk}, warp_sampler {rcfg.warp_sampler}, pixel/patch weights "
+        f"{ft_cfg.color_loss.color_pixel_weight}/{ft_cfg.color_loss.color_patch_weight}")
+    if ft_cfg.model.udf_network != ucfg or ft_cfg.model.nerf != cfg.model.nerf:
+        raise AssertionError("the two configurations differ in their networks")
 
     t0 = time.time()
     log(f"[kernels] K1/K2 at N={N_POINTS} against the plain versions")
@@ -381,15 +620,44 @@ def main() -> int:
     log(f"[data] {runner.dataset.n_images} views {runner.dataset.H}x{runner.dataset.W} loaded")
 
     t0 = time.time()
+    log(f"[kernels] K3 at {K3_SHAPE} positions against the plain version and F.grid_sample")
+    k3_errors, k3in = check_strip_sample(runner.dataset.scene, dev)
+    log(f"[kernels] K3 ok in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
     check_small_step(cfg, runner.dataset, dev)
+    check_small_blending_step(ft_cfg, runner.dataset, dev)
     log(f"[step-parity] ok in {time.time() - t0:.1f} s")
 
-    launches = train_main_path(runner, cfg, exp_dir, fd)
-    times, nbytes, flops = time_kernels(ucfg, kin, card)
-    time_step(runner, card)
-    profile_step(runner)
+    # the two main paths; every kernel's count is set to 0 before each
+    counters = {"K1": fd.fused_forward, "K2": fd.fused_backward, "K3": ss.strip_sample}
+    launches_stage1, _ = train_main_path(runner, cfg, exp_dir, counters, ("K1", "K2"))
+    ckpt = runner._latest_checkpoint()
+    if ckpt is None:
+        raise AssertionError("the stage-1 run saved no checkpoint")
 
-    tier = ucfg.fused_precision  # the main path's tier
+    ft_runner = Runner(ft_cfg, device=dev, seed=1, is_finetune=True)
+    ft_runner.load_checkpoint(ckpt)
+    if ft_runner.iter_step != 0:
+        raise AssertionError("the finetune did not restart the schedule clock")
+    log(f"[finetune] loaded {Path(ckpt).name} of the stage-1 run")
+    launches_ft, ft_rows = train_main_path(ft_runner, ft_cfg, exp_dir, counters,
+                                           ("K1", "K2", "K3"))
+    check_finetune_rows(ft_rows)
+
+    times, nbytes, flops = time_kernels(ucfg, kin, card)
+    k3_times, k3_bytes, k3_flops = time_strip_sample(k3in, card)
+    profiles = []
+    for r in (runner, ft_runner):
+        time_step(r, card)
+        profiles.append(profile_step(r))
+    profile_difference(*profiles)
+    torch.cuda.reset_peak_memory_stats()
+    time_step(ft_runner, card)
+    log(f"[memory] finetune step: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+
+    tier = ucfg.fused_precision  # the main paths' tier
     kernels = []
     for k, name, line in (("K1", "fused_distance_fwd", 226), ("K2", "fused_distance_bwd", 252)):
         outs = ("udf", "feat", "grad") if k == "K1" else ("xbar", "wbar", "bbar")
@@ -397,7 +665,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "neuraludf_tpu_torch/csrc/fused_distance.cu",
             "replaces": f"neuraludf_tpu/ops/fused_distance.py:{line}",
-            "launches": launches[k],
+            "launches": launches_stage1[k] + launches_ft[k],
+            "launches_by_path": {"stage1": launches_stage1[k], "finetune": launches_ft[k]},
             "max_abs_err": max(errors[(k, tier, "explicit", o)][0] for o in outs),
             "ms": times[(k, tier)], "plain_ms": times[(k + "plain", tier)],
             "bound_ms": bound_ms(nbytes[k], flops[k], tier),
@@ -405,6 +674,19 @@ def main() -> int:
             else "bytes",
             "library_ms": None,
         })
+    kernels.append({
+        "name": "strip_sample", "route": "cuda",
+        "source": "neuraludf_tpu_torch/csrc/strip_sample.cu",
+        "replaces": "neuraludf_tpu/ops/strip_sample.py:158",
+        "launches": launches_ft["K3"],
+        "launches_by_path": {"stage1": 0, "finetune": launches_ft["K3"]},
+        "max_abs_err": k3_errors["plain"],
+        "ms": k3_times["K3"], "plain_ms": k3_times["K3plain"],
+        "bound_ms": bound_ms(k3_bytes, k3_flops, "highest"),
+        "bound_by": "operations" if k3_flops / PEAK_FLOPS["highest"] > k3_bytes / PEAK_BYTES
+        else "bytes",
+        "library_ms": k3_times["K3library"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

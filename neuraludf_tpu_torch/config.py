@@ -156,11 +156,15 @@ class RendererConfig:
     sparse_depth_gate: float = 0.0
     h_patch_size: int = 3
     use_norm_grad_for_cosine: bool = False
-    # blending-finetune switches (read by the slice that ports blending)
+    # blending-finetune switches: 'gather' warps every sample with
+    # ops.interp; 'strip' warps the blend_top_k highest-weight samples of a
+    # ray through ops.strip_sample (kernel K3 for CUDA tensors, its plain
+    # version for CPU tensors); 'auto' = 'strip' for CUDA tensors, 'gather'
+    # on the CPU
     warp_sampler: str = "auto"  # 'auto' | 'gather' | 'strip'
     blend_top_k: int = 32
-    blend_chunk: int = 8
-    strip_height: int = 64
+    blend_chunk: int = 8  # k is cut to a multiple of it, as in the JAX package
+    strip_height: int = 64  # kept so that the .conf files load; unread (no strips here)
     remat: str = "none"
 
 @dataclass(frozen=True)

@@ -1,11 +1,13 @@
 """Dataset: IDR-convention scene loading and training-ray sampling
-(counterpart of ``neuraludf_tpu/data/dataset.py``, stage-1 part).
+(counterpart of ``neuraludf_tpu/data/dataset.py``).
 
 ``Dataset`` reads a scene directory (``cameras.npz``, ``image/*.png``,
 ``mask/*.png``) into a ``scene`` dict of tensors on one device: images
 [V,H,W,3] (BGR, /256 like the reference), masks, intrinsics (and inverses)
-and c2w poses. ``sample_random_rays`` draws a training batch from one view;
-its pixel draws come from a ``torch.Generator`` or are given as ``px, py``.
+c2w poses, and each view's nearest neighbours (``ref_src_pairs``).
+``sample_random_rays`` draws a training batch from one view; its pixel draws
+come from a ``torch.Generator`` or are given as ``px, py``. ``ref_src_info``
+gathers the source views that the blending finetune warps into.
 
 A ray through pixel (x, y) is ``normalize(pose_R @ K^-1 [x, y, 1])`` from
 the camera centre.
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from ..config import DatasetConfig
+from ..ops.interp import grid_sample_2d
+from ..render.projector import build_patch_offset
 from .cameras import decompose_projection
 from .png import read_png
 
@@ -61,10 +65,13 @@ def _draw_pixels(scene: Scene, batch_size: int, generator: torch.Generator):
 def sample_random_rays(scene: Scene, img_idx: int, batch_size: int, *,
                        generator: Optional[torch.Generator] = None,
                        px: Optional[torch.Tensor] = None,
-                       py: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                       py: Optional[torch.Tensor] = None,
+                       crop_patch: bool = False,
+                       h_patch_size: int = 3) -> Dict[str, Optional[torch.Tensor]]:
     """Random training rays from one view: {"rays": [B,10] (o, d, rgb, mask),
-    "rays_ndc_uv": [B,2] in (-1,1)}. The patch crop of the blending finetune
-    is not ported yet."""
+    "rays_ndc_uv": [B,2] in (-1,1), "rays_patch_color": [B,(2h+1)²,3] or
+    None, "rays_patch_mask": [B,1] or None}. With ``crop_patch`` the ground
+    truth patch around every pixel is cropped too (zeros outside the image)."""
     _, H, W, _ = scene["images"].shape
     if px is None or py is None:
         px, py = _draw_pixels(scene, batch_size, generator)
@@ -80,7 +87,29 @@ def sample_random_rays(scene: Scene, img_idx: int, batch_size: int, *,
                                     scene["poses"][img_idx])
     rays = torch.cat([rays_o, rays_v, color, mask[:, :1]], dim=-1)
     ndc_uv = torch.stack([2.0 * pxf / (W - 1) - 1.0, 2.0 * pyf / (H - 1) - 1.0], dim=-1)
-    return {"rays": rays, "rays_ndc_uv": ndc_uv}
+
+    patch_color = patch_mask = None
+    if crop_patch:
+        offsets = torch.as_tensor(build_patch_offset(h_patch_size), device=dev)  # [Npx, 2]
+        grid = torch.stack([pxf, pyf], dim=-1)[:, None, :] + offsets[None]  # [B, Npx, 2]
+        grid_uv = torch.stack([2.0 * grid[..., 0] / (W - 1) - 1.0,
+                               2.0 * grid[..., 1] / (H - 1) - 1.0], dim=-1)
+        patch_color = grid_sample_2d(image.permute(2, 0, 1), grid_uv)  # [B, Npx, 3]
+        h = h_patch_size
+        patch_mask = ((px > h) & (px < W - h) & (py > h) & (py < H - h)).reshape(-1, 1)
+    return {"rays": rays, "rays_ndc_uv": ndc_uv, "rays_patch_color": patch_color,
+            "rays_patch_mask": patch_mask}
+
+
+def ref_src_info(scene: Scene, img_idx: int, num: int = 8):
+    """Blending inputs of a reference view: its c2w, and the c2ws, intrinsics
+    and images [V, 3, H, W] of its ``num`` nearest source views (from
+    ``scene["ref_src_pairs"]``). The images are a channel-first view of a
+    channel-last copy, the layout ``ops.strip_sample`` reads."""
+    src_idx = scene["ref_src_pairs"][img_idx, :num]
+    src_images = scene["images"][src_idx].permute(0, 3, 1, 2)
+    return (scene["poses"][img_idx], scene["poses"][src_idx], scene["intrinsics"][src_idx],
+            src_images)
 
 
 class Dataset:
@@ -142,6 +171,8 @@ class Dataset:
             "poses": to_dev(pose_all),
         }
         self.ref_src_pairs = self._prepare_ref_src_pairs(pose_all)
+        self.scene["ref_src_pairs"] = torch.as_tensor(self.ref_src_pairs, dtype=torch.long,
+                                                      device=self.device)
 
     @staticmethod
     def _prepare_ref_src_pairs(pose_all: np.ndarray) -> np.ndarray:

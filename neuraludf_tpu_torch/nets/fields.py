@@ -261,3 +261,50 @@ def gamma_value(params: Params) -> torch.Tensor:
 
 def zeta_value(params: Params) -> torch.Tensor:
     return torch.abs(params["zeta"])
+
+
+# ---------------------------------------------------------------------------
+# Per-view colour blending
+# ---------------------------------------------------------------------------
+
+def color_blend(
+    blending_logits: torch.Tensor,
+    img_index: Optional[torch.Tensor] = None,
+    pts_pixel_color: Optional[torch.Tensor] = None,
+    pts_pixel_mask: Optional[torch.Tensor] = None,
+    pts_patch_color: Optional[torch.Tensor] = None,
+    pts_patch_mask: Optional[torch.Tensor] = None,
+):
+    """Fuse the per-view warped colours with the learned blending weights.
+
+    blending_logits [B, S, n_cand]; pixel colour/mask [B, S, V, 3]/[B, S, V];
+    patch colour/mask [B, S, V, 3, Npx]/[B, S, V, Npx] (channel-packed, patch
+    axis last). ``img_index`` [V] picks each view's logit; without it the
+    first V are taken. Returns (pixel colour [B, S, 3], pixel mask [B, S, 1],
+    patch colour [B, S, 3, Npx], patch mask [B, S, 1]); a pair is None where
+    its input is."""
+    nviews = (pts_pixel_color.shape[-2] if pts_pixel_color is not None
+              else pts_patch_color.shape[-3])
+    if img_index is not None:
+        logits = torch.index_select(blending_logits, -1, img_index.long())
+    else:
+        logits = blending_logits[..., :nviews]
+    soft = torch.softmax(logits, dim=-1)
+
+    final_pixel_color = final_pixel_mask = None
+    if pts_pixel_color is not None:
+        w_pix = soft * pts_pixel_mask
+        w_pix = w_pix / (torch.sum(w_pix, dim=-1, keepdim=True) + 1e-8)
+        final_pixel_color = torch.sum(pts_pixel_color * w_pix[..., None], dim=-2)
+        final_pixel_mask = torch.sum(pts_pixel_mask, dim=-1, keepdim=True) > 0
+
+    final_patch_color = final_patch_mask = None
+    if pts_patch_color is not None:
+        npx = pts_patch_color.shape[-1]
+        patch_mask = torch.sum(pts_patch_mask, dim=-1) > (npx - 1)  # [B, S, V]
+        w_patch = soft * patch_mask
+        w_patch = w_patch / (torch.sum(w_patch, dim=-1, keepdim=True) + 1e-8)
+        final_patch_color = torch.einsum("bsvcp,bsv->bscp", pts_patch_color, w_patch)
+        final_patch_mask = torch.sum(patch_mask, dim=-1, keepdim=True) > 0  # [B, S, 1]
+
+    return final_pixel_color, final_pixel_mask, final_patch_color, final_patch_mask

@@ -29,13 +29,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
-from pathlib import Path
 from typing import List, Sequence, Tuple
 
 import torch
@@ -44,14 +39,12 @@ from torch.autograd.function import once_differentiable
 from ..config import UDFNetworkConfig
 from ..nets import fields
 from ..nets.mlp import softplus100, weight
+from . import build
 
 TILE = 64  # the kernels' row and column tile; every padded width is a multiple
 W_SPLITS = 64  # split-K partial sums of the weight cotangent
 HEADS = {"abs": 0, "square": 1, "sdf": 2}
 TIERS = ("default", "highest")
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 
 def _round_up(v: int, m: int) -> int:
@@ -353,32 +346,10 @@ def explicit_backward(x, wflat, bflat, lay: Layout, tier: str, ubar, fbar, gbar)
 # ----------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    cand = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                                                "bin", "nvcc")
-    if not os.path.exists(cand):
-        raise RuntimeError("nvcc not found: the fused-distance kernels need the CUDA toolkit")
-    return cand
-
-
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build csrc/fused_distance.cu for sm_90a at first use (keyed on a hash
-    of the source) and load it. A failed build raises."""
-    src = _CSRC / "fused_distance.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = _BUILD / f"libfused_distance_{digest}.so"
-    if not out.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, out)
-        (_BUILD / f"ptxas_{digest}.log").write_text(res.stderr)
-    lib = ctypes.CDLL(str(out))
+    """csrc/fused_distance.cu, built at first use, with its argument types."""
+    lib = build.load("fused_distance")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fd_scratch_floats.argtypes = [I, P, I, I, I, I]
     lib.fd_scratch_floats.restype = ctypes.c_size_t

@@ -1,4 +1,4 @@
-"""The UDF volume renderer, stage-1 path (counterpart of
+"""The UDF volume renderer (counterpart of
 ``neuraludf_tpu/render/renderer.py``).
 
 Occlusion-aware unsigned-distance rendering (NeuralUDF, CVPR 2023): an
@@ -16,8 +16,14 @@ Each one missing from ``noise`` is drawn from ``generator``.
 the JAX ``render`` returns, is a method of its own: no loss reads it, so a
 training step does not evaluate it.
 
-The pixel and patch blending branches belong to the blending finetune and
-are not ported yet.
+The blending finetune adds, per sample, the source views' colours at the
+sample's projection (pixel blending) and at the homography warp of the
+reference patch (patch blending), fused over the views with learned weights
+(``fields.color_blend``). ``warp_sampler`` picks how the images are sampled:
+``gather`` warps all samples with ``ops.interp``; ``strip`` warps the
+``blend_top_k`` highest-weight samples of each ray through
+``ops.strip_sample`` (kernel K3 for CUDA tensors, its plain version for CPU
+tensors); ``auto`` is ``strip`` for CUDA tensors and ``gather`` on the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ import torch
 from ..config import ModelConfig
 from ..nets import fields
 from ..numerics import clip
+from ..ops.strip_sample import strip_sample
 from .alpha import sdf2alpha, transmittance_weights, udf2logistic
+from .projector import PatchProjector, camera_inverse
 from .sampling import (
     _dists_with_tail,
     _ray_points,
@@ -39,9 +47,6 @@ from .sampling import (
 )
 
 Params = Dict[str, Any]
-
-BLENDING_TODO = ("pixel/patch blending is not ported yet "
-                 "(ROADMAP: slice 2, items 7-8, projector and strip sampler)")
 
 
 @dataclass(frozen=True)
@@ -65,11 +70,91 @@ class UDFRenderer:
     def __init__(self, model_cfg: ModelConfig):
         self.cfg = model_cfg
         self.rcfg = model_cfg.udf_renderer
+        self.projector = PatchProjector(self.rcfg.h_patch_size)
 
     def udf_fn(self, params: Params):
         """Value-only distance queries of the no-grad up-sampling rounds."""
         ucfg = self.cfg.udf_network
         return lambda pts: fields.distance_value(params["udf"], pts, ucfg, role="sampling")[:, 0]
+
+    # -- blending warp sampler -------------------------------------------------
+
+    def _strip_active(self, blending) -> bool:
+        """Whether the blending warps go through ``ops.strip_sample``."""
+        mode = self.rcfg.warp_sampler
+        if mode == "gather":
+            return False
+        if mode == "strip":
+            if self.rcfg.blend_top_k <= 0:
+                raise ValueError("warp_sampler='strip' needs blend_top_k > 0")
+            return True
+        if mode != "auto":
+            raise ValueError(f"warp_sampler must be auto|gather|strip, got {mode!r}")
+        return self.rcfg.blend_top_k > 0 and blending["color_maps"].is_cuda
+
+    def _blend_warp_strip(self, blending, pts3, normals_w, alpha_fg, opts):
+        """Warp the blend_top_k highest-weight samples of each ray through
+        ``strip_sample``. The warp positions are constants with respect to
+        the networks, so sampling is forward-only.
+
+        Returns (idx [B, K] sample indices in z order, pix_color [B, K, V, 3]
+        or None, pix_mask, patch_color [B, K, V, 3, Npx] or None, patch_mask,
+        coverage = the share of warp positions that lie in their image)."""
+        rcfg = self.rcfg
+        batch, n, _ = pts3.shape
+        chunk = max(1, min(rcfg.blend_chunk, rcfg.blend_top_k, n))
+        k = min(rcfg.blend_top_k, n)
+        k -= k % chunk
+        imgs = blending["color_maps"]  # [V, 3, H, W]
+        v, _, h, w_img = imgs.shape
+
+        with torch.no_grad():
+            w_sel = transmittance_weights(alpha_fg)  # [B, n]
+            # a stable descending sort keeps the lower index among equal
+            # weights, the rule of jax.lax.top_k (torch.topk promises none)
+            idx = torch.sort(w_sel, dim=-1, descending=True, stable=True).indices[:, :k]
+            idx = torch.sort(idx, dim=-1).values  # z order
+            take3 = lambda a: torch.gather(a, 1, idx[..., None].expand(-1, -1, 3))
+            pts_k = take3(pts3)  # [B, K, 3]
+
+            parts_x, parts_y = [], []
+            npx = 0
+            patch_geo_mask = pix_geo_valid = None
+            if opts.patch_blending:
+                pgx, pgy, patch_geo_mask = self.projector.patch_warp_positions(
+                    pts_k, blending["rays_uv"], take3(normals_w), (h, w_img),
+                    blending["intrinsics"][0], blending["intrinsics"], blending["query_c2w"],
+                    camera_inverse(blending["w2cs"]), detach_normal=True)
+                npx = pgx.shape[-1]  # [V, B, K, Npx]
+                parts_x.append(pgx)
+                parts_y.append(pgy)
+            if opts.pixel_blending:
+                xg, yg, pix_geo_valid = self.projector.pixel_warp_positions(
+                    pts_k, blending["intrinsics"], blending["w2cs"], (h, w_img))  # [V, B, K]
+                parts_x.append(xg[..., None])
+                parts_y.append(yg[..., None])
+
+            gx = torch.cat(parts_x, dim=-1)  # [V, B, K, stride]
+            gy = torch.cat(parts_y, dim=-1)
+            stride = gx.shape[-1]
+            nchunks = k // chunk
+            pc = chunk * stride
+            colors, in_img = strip_sample(imgs, gx.reshape(v, batch * nchunks, pc),
+                                          gy.reshape(v, batch * nchunks, pc))
+            # [V, NW, 3, P] -> [V, B, K, 3, stride]
+            colors = colors.reshape(v, batch, nchunks, 3, chunk, stride)
+            colors = colors.permute(0, 1, 2, 4, 3, 5).reshape(v, batch, k, 3, stride)
+            in_img = in_img.reshape(v, batch, k, stride)
+
+            pix_color = pix_mask = patch_color = patch_mask = None
+            if opts.patch_blending:
+                patch_color = colors[..., :npx].permute(1, 2, 0, 3, 4)
+                patch_mask = (patch_geo_mask & in_img[..., :npx]).permute(1, 2, 0, 3)
+            if opts.pixel_blending:
+                pix_color = colors[..., npx].permute(1, 2, 0, 3)  # [B, K, V, 3]
+                pix_mask = (pix_geo_valid & in_img[..., npx]).permute(1, 2, 0)
+            coverage = in_img.to(torch.float32).mean()
+        return idx, pix_color, pix_mask, patch_color, patch_mask, coverage
 
     # -- background (NeRF++) -------------------------------------------------
 
@@ -105,8 +190,6 @@ class UDFRenderer:
                     blending: Optional[Dict[str, Any]] = None,
                     opts: RenderOptions = RenderOptions()) -> Dict[str, Any]:
         """Foreground pass."""
-        if blending is not None and (opts.pixel_blending or opts.patch_blending):
-            raise NotImplementedError(BLENDING_TODO)
         rcfg = self.rcfg
         batch, n = z_vals.shape
         dists = _dists_with_tail(z_vals, sample_dist)
@@ -156,10 +239,46 @@ class UDFRenderer:
 
         udf_2d = udf.reshape(batch, n)
 
-        color_base, color_s, _ = fields.residual_color_apply(
+        color_base, color_s, blending_logits = fields.residual_color_apply(
             params["color"], pts, grad_norm, dirs, feature, self.cfg.rendering_network)
         sampled_color_base = color_base.reshape(batch, n, 3)
         sampled_color = color_s.reshape(batch, n, 3)
+        blending_logits = blending_logits.reshape(batch, n, -1)
+
+        # pixel / patch blending
+        sampled_color_pixel = sampled_color_patch = sampled_color_patch_mask = None
+        blend_idx = None  # [B, K]: the sample subset under the strip sampler
+        strip_coverage = None
+        if blending is not None and (opts.pixel_blending or opts.patch_blending):
+            pts3 = pts.reshape(batch, n, 3)
+            normals_w = (flip_sign * grad_norm).reshape(batch, n, 3)
+            if self._strip_active(blending):
+                (blend_idx, pix_color, pix_mask, patch_color, patch_mask,
+                 strip_coverage) = self._blend_warp_strip(blending, pts3, normals_w, alpha, opts)
+                logits_sel = torch.gather(
+                    blending_logits, 1,
+                    blend_idx[..., None].expand(-1, -1, blending_logits.shape[-1]))
+            else:
+                pix_color = pix_mask = patch_color = patch_mask = None
+                if opts.pixel_blending:
+                    pix_color, pix_mask = self.projector.pixel_warp(
+                        pts3, blending["color_maps"], blending["intrinsics"], blending["w2cs"])
+                if opts.patch_blending:
+                    patch_color, patch_mask = self.projector.patch_warp(
+                        pts3, blending["rays_uv"], normals_w, blending["color_maps"],
+                        blending["intrinsics"][0], blending["intrinsics"],
+                        blending["query_c2w"], camera_inverse(blending["w2cs"]),
+                        detach_normal=True)
+                logits_sel = blending_logits
+            pix_c, _, patch_c, patch_m = fields.color_blend(
+                logits_sel, img_index=blending.get("img_index"),
+                pts_pixel_color=pix_color, pts_pixel_mask=pix_mask,
+                pts_patch_color=patch_color, pts_patch_mask=patch_mask)
+            if opts.pixel_blending:
+                sampled_color_pixel = pix_c  # [B, n, 3], or [B, K, 3] under strip
+            if opts.patch_blending:
+                sampled_color_patch = patch_c  # [B, n|K, 3, Npx]
+                sampled_color_patch_mask = patch_m[..., 0]  # [B, n|K]
 
         # eikonal masks
         pts_norm = torch.linalg.vector_norm(pts, dim=-1).reshape(batch, n)
@@ -174,12 +293,45 @@ class UDFRenderer:
             sampled_color_base = torch.cat(
                 [sampled_color_base, background_sampled_color[:, n_fg:]], dim=1)
             sampled_color = torch.cat([sampled_color, background_sampled_color[:, n_fg:]], dim=1)
+            if sampled_color_pixel is not None and blend_idx is None:
+                scp = (sampled_color_pixel * inside_sphere[:, :, None]
+                       + background_sampled_color[:, :n_fg] * (1.0 - inside_sphere)[:, :, None])
+                sampled_color_pixel = torch.cat([scp, background_sampled_color[:, n_fg:]], dim=1)
 
         weights = transmittance_weights(alpha)
         weights_sum = weights.sum(-1, keepdim=True)
 
         color_base_out = torch.sum(sampled_color_base * weights[:, :, None], dim=1)
         color_out = torch.sum(sampled_color * weights[:, :, None], dim=1)
+
+        # under the strip sampler the blended colours exist at the top-k
+        # samples only: composite them with the same transmittance weights,
+        # gathered at those samples
+        weights_k = None
+        if blend_idx is not None:
+            weights_k = torch.gather(weights[:, :n_fg], 1, blend_idx)
+
+        color_pixel = None
+        if sampled_color_pixel is not None:
+            if blend_idx is None:
+                color_pixel = torch.sum(sampled_color_pixel * weights[:, :, None], dim=1)
+            elif background_alpha is not None:
+                inside_k = torch.gather(inside_sphere, 1, blend_idx)
+                color_pixel = (
+                    torch.sum(sampled_color_pixel * (weights_k * inside_k)[:, :, None], dim=1)
+                    + torch.sum(background_sampled_color[:, :n_fg]
+                                * (weights[:, :n_fg] * (1.0 - inside_sphere))[:, :, None], dim=1)
+                    + torch.sum(background_sampled_color[:, n_fg:] * weights[:, n_fg:, None],
+                                dim=1))
+            else:
+                color_pixel = torch.sum(sampled_color_pixel * weights_k[:, :, None], dim=1)
+
+        fused_patch_colors = fused_patch_mask = None
+        if sampled_color_patch is not None:
+            w_patch = weights[:, :n_fg] if blend_idx is None else weights_k
+            fused_patch_colors = torch.einsum("bscp,bs->bpc", sampled_color_patch, w_patch)
+            fused_patch_mask = torch.sum(sampled_color_patch_mask.to(weights.dtype) * w_patch,
+                                         dim=1)  # [B]
 
         depth = torch.sum(mid_z * weights[:, :n_fg], dim=-1, keepdim=True)
         if background_rgb is not None:
@@ -207,9 +359,10 @@ class UDFRenderer:
         return {
             "color_base": color_base_out,
             "color": color_out,
-            "color_pixel": None,
-            "patch_colors": None,
-            "patch_mask": None,
+            "color_pixel": color_pixel,
+            "patch_colors": fused_patch_colors,  # [B, Npx, 3]
+            "patch_mask": fused_patch_mask,
+            "blend_idx": blend_idx,  # [B, K] under the strip sampler, else None
             "weights": weights,
             "s_val": 1.0 / inv_s,
             "beta": 1.0 / beta,
@@ -233,8 +386,10 @@ class UDFRenderer:
             "sparse_error": sparse_error,
             "alpha_occ": alpha_occ,
             "raw_occ": raw_occ,
-            # the strip sampler's coverage; 1 without blending
-            "blend_strip_cover": torch.ones((), dtype=z_vals.dtype, device=z_vals.device),
+            # the share of the strip sampler's warp positions that lie in their
+            # image; 1 when it is off
+            "blend_strip_cover": (strip_coverage if strip_coverage is not None else
+                                  torch.ones((), dtype=z_vals.dtype, device=z_vals.device)),
         }
 
     # -- public entry ----------------------------------------------------------

@@ -96,7 +96,7 @@ class Runner:
         self.variance_trainable = (cfg.model.variance_network.requires_grad
                                    and not cfg.train.freeze_variance)
         self._beta_flag = True
-        self._step_body = None
+        self._step_bodies = {}
 
         if is_continue:
             latest = self._latest_checkpoint()
@@ -173,10 +173,15 @@ class Runner:
             same_lr=self.cfg.train.same_lr, beta_trainable=self.beta_trainable,
             variance_trainable=self.variance_trainable)
 
-    def step_body(self):
-        if self._step_body is None:
-            self._step_body = build_step_body(self.cfg, self.renderer)
-        return self._step_body
+    def step_body(self, s: sched_mod.StepSchedules):
+        """The step body of an iteration with schedule values ``s``: with the
+        blending branches where a blending weight is positive, without them
+        otherwise. One body per mode, built at first use."""
+        blending = s.color_pixel_weight > 0 or s.color_patch_weight > 0
+        if blending not in self._step_bodies:
+            self._step_bodies[blending] = build_step_body(self.cfg, self.renderer,
+                                                          blending=blending)
+        return self._step_bodies[blending]
 
     def train(self):
         n_img = self.dataset.n_images
@@ -187,7 +192,6 @@ class Runner:
             image_perm = perm_rng.permutation(n_img)
 
         window = self._window_size()
-        body = self.step_body()
         log_dir = os.path.join(self.base_exp_dir, "logs")
         os.makedirs(log_dir, exist_ok=True)
         t_start = time.time()
@@ -197,9 +201,7 @@ class Runner:
                 rows = []
                 for _ in range(k):
                     s = self._schedules_at(self.iter_step)
-                    if s.color_pixel_weight > 0 or s.color_patch_weight > 0:
-                        raise NotImplementedError(
-                            "blending iterations are not ported yet (ROADMAP: slice 2)")
+                    body = self.step_body(s)
                     img_idx = int(image_perm[self.iter_step % n_img])
                     if (self.iter_step + 1) % n_img == 0:
                         image_perm = perm_rng.permutation(n_img)

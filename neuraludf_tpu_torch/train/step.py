@@ -1,8 +1,10 @@
 """The training step: ray sampling → render → losses → Adam (counterpart of
-``neuraludf_tpu/train/step.py``, stage-1 path).
+``neuraludf_tpu/train/step.py``).
 
 ``build_loss_fn`` gives the total loss and the 19 ``METRIC_KEYS`` of one
 iteration; ``build_step_body`` adds the backward pass and the Adam update.
+Built with ``blending=True`` they render the pixel and patch blending
+branches of the finetune and add their losses.
 The random draws of an iteration (pixels ``px``/``py`` and the render noise
 ``t_rand``/``t_r``) come from a ``torch.Generator`` or are
 given in ``noise``. The runner loops over steps eagerly and moves the
@@ -16,8 +18,9 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..config import Config
-from ..data.dataset import near_far_from_sphere, sample_random_rays
+from ..data.dataset import near_far_from_sphere, ref_src_info, sample_random_rays
 from ..losses.color import ColorLossWeights, bce_mask_loss, color_loss, psnr
+from ..render.projector import camera_inverse
 from ..render.renderer import RenderOptions, UDFRenderer
 from .optim import adam_step, leaves, make_lr_fn, make_trainable_fn
 
@@ -32,25 +35,46 @@ METRIC_KEYS: List[str] = [
 ]
 
 
-def build_loss_fn(cfg: Config, renderer: UDFRenderer) -> Callable:
+def build_loss_fn(cfg: Config, renderer: UDFRenderer, *, blending: bool = False) -> Callable:
     """loss_fn(params, scene, img_idx, sched, generator=None, noise=None)
-    -> (total loss, metrics dict of 0-dim tensors). Stage 1: no pixel or
-    patch blending, like the JAX step built with blending=False."""
+    -> (total loss, metrics dict of 0-dim tensors). ``blending`` turns on the
+    pixel and patch blending branches whose configured weight is positive."""
     tcfg, ccfg = cfg.train, cfg.color_loss
     use_mask_loss = tcfg.mask_weight > 0
-    opts = RenderOptions(perturb=cfg.model.udf_renderer.perturb > 0)
+    h_patch = ccfg.h_patch_size
+    opts = RenderOptions(perturb=cfg.model.udf_renderer.perturb > 0,
+                         pixel_blending=blending and ccfg.color_pixel_weight > 0,
+                         patch_blending=blending and ccfg.color_patch_weight > 0)
+    if opts.patch_blending and cfg.model.udf_renderer.h_patch_size != h_patch:
+        # the patch size is configured in two places; they must agree or the
+        # warped and the ground-truth patches differ in shape
+        raise ValueError("model.udf_renderer.h_patch_size must equal color_loss.h_patch_size "
+                         f"({cfg.model.udf_renderer.h_patch_size} != {h_patch})")
 
     def loss_fn(params: Params, scene, img_idx: int, sched: Dict[str, float],
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Dict[str, torch.Tensor]] = None):
         noise = noise or {}
         sample = sample_random_rays(scene, img_idx, tcfg.batch_size, generator=generator,
-                                    px=noise.get("px"), py=noise.get("py"))
+                                    px=noise.get("px"), py=noise.get("py"),
+                                    crop_patch=opts.patch_blending, h_patch_size=h_patch)
         data = sample["rays"]
         rays_o, rays_d = data[:, :3], data[:, 3:6]
         true_rgb, mask = data[:, 6:9], data[:, 9:10]
         mask = (mask > 0.5).to(torch.float32)
         near, far = near_far_from_sphere(rays_o, rays_d)
+
+        blending_inputs = None
+        if opts.pixel_blending or opts.patch_blending:
+            ref_c2w, src_c2ws, src_intr, src_images = ref_src_info(scene, img_idx)
+            blending_inputs = {
+                "color_maps": src_images,
+                "w2cs": camera_inverse(src_c2ws),
+                "intrinsics": src_intr,
+                "query_c2w": ref_c2w,
+                "rays_uv": sample["rays_ndc_uv"] if opts.patch_blending else None,
+                "img_index": None,
+            }
 
         ret = renderer.render(
             params, rays_o, rays_d, near, far, generator=generator, noise=noise,
@@ -58,18 +82,22 @@ def build_loss_fn(cfg: Config, renderer: UDFRenderer) -> Callable:
             flip_saturation=sched["flip_saturation"],
             background_rgb=(torch.ones((1, 3), device=rays_o.device)
                             if tcfg.use_white_bkgd else None),
-            opts=opts)
+            blending=blending_inputs, opts=opts)
 
         weight_sum = ret["weight_sum"]
+        patch_mask = None
+        if ret["patch_colors"] is not None:
+            patch_mask = (ret["patch_mask"][:, None]
+                          * (weight_sum > 0.5).to(torch.float32)) > 0.0
         pixel_mask = mask if use_mask_loss else None
         weights = ColorLossWeights(color_base=sched["color_base_weight"],
                                    color=sched["color_weight"],
                                    color_pixel=sched["color_pixel_weight"],
                                    color_patch=sched["color_patch_weight"])
         closs = color_loss(weights, ret["color_base"], ret["color"], true_rgb,
-                           ret["color_pixel"], pixel_mask, ret["patch_colors"], None, None,
-                           patch_loss_type=ccfg.patch_loss_type,
-                           h_patch_size=ccfg.h_patch_size)
+                           ret["color_pixel"], pixel_mask, ret["patch_colors"],
+                           sample["rays_patch_color"], patch_mask,
+                           patch_loss_type=ccfg.patch_loss_type, h_patch_size=h_patch)
 
         mask_l = bce_mask_loss(weight_sum, mask)
         total = (closs["loss"]
@@ -117,10 +145,10 @@ def param_grads(total: torch.Tensor, params: Params) -> Dict[tuple, torch.Tensor
     return dict(zip(paths, grads))
 
 
-def build_step_body(cfg: Config, renderer: UDFRenderer) -> Callable:
+def build_step_body(cfg: Config, renderer: UDFRenderer, *, blending: bool = False) -> Callable:
     """body(params, opt_state, scene, img_idx, sched, generator=None,
     noise=None) -> metrics; updates params and opt_state in place."""
-    loss_fn = build_loss_fn(cfg, renderer)
+    loss_fn = build_loss_fn(cfg, renderer, blending=blending)
     bcfg = cfg.model.beta_network
 
     def body(params, opt_state, scene, img_idx, sched, generator=None, noise=None):

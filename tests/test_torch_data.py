@@ -1,7 +1,8 @@
 """The port's data layer against the JAX package's on the CPU: the PNG
 reader and writer against OpenCV (BGR order), the numpy RQ camera
 decomposition against the OpenCV branch, the synthetic scene generator, the
-loaded scene tensors, and training-ray sampling with injected pixels."""
+loaded scene tensors, training-ray sampling with injected pixels, the
+ground-truth patch crop and the source views of the blending finetune."""
 
 import os
 
@@ -14,13 +15,15 @@ import torch
 from neuraludf_tpu.config import DatasetConfig as JDatasetConfig
 from neuraludf_tpu.data import cameras as jcameras
 from neuraludf_tpu.data.dataset import Dataset as JDataset
+from neuraludf_tpu.data.dataset import ref_src_info as j_ref_src_info
 from neuraludf_tpu.data.dataset import sample_random_rays as j_sample_random_rays
 from neuraludf_tpu.data.synthetic import generate_scene as j_generate_scene
 from neuraludf_tpu_torch.config import DatasetConfig as TDatasetConfig
 from neuraludf_tpu_torch.data import cameras as tcameras
 from neuraludf_tpu_torch.data import png
 from neuraludf_tpu_torch.data.dataset import Dataset as TDataset
-from neuraludf_tpu_torch.data.dataset import near_far_from_sphere, sample_random_rays
+from neuraludf_tpu_torch.data.dataset import (near_far_from_sphere, ref_src_info,
+                                              sample_random_rays)
 from neuraludf_tpu_torch.data.synthetic import generate_scene as t_generate_scene
 
 SCENE = dict(kind="sphere", n_views=3, H=30, W=40, focal=48.0)
@@ -120,3 +123,53 @@ def test_dataset_and_ray_sampling(scenes):
     assert torch.equal(a["rays"], b["rays"])
     np.testing.assert_allclose(torch.linalg.vector_norm(a["rays"][:, 3:6], dim=-1).numpy(), 1.0,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("h_patch", [1, 3])
+def test_patch_crop_matches_jax(scenes, h_patch):
+    _, tdir = scenes
+    jds = JDataset(JDatasetConfig(data_dir=tdir, dataset_name="general"))
+    tds = TDataset(TDatasetConfig(data_dir=tdir, dataset_name="general"), "cpu")
+    key = jax.random.PRNGKey(9)
+    kx, ky, _ = jax.random.split(key, 3)
+    n = 64
+    px = np.asarray(jax.random.randint(kx, (n,), 0, tds.W))
+    py = np.asarray(jax.random.randint(ky, (n,), 0, tds.H))
+    ref = j_sample_random_rays(jds.scene, 1, key, n, crop_patch=True, h_patch_size=h_patch)
+    out = sample_random_rays(tds.scene, 1, n, px=torch.tensor(px), py=torch.tensor(py),
+                             crop_patch=True, h_patch_size=h_patch)
+    npx = (2 * h_patch + 1) ** 2
+    assert out["rays_patch_color"].shape == (n, npx, 3)
+    # integer pixel centres: the crop is the image's own values, zeros outside
+    np.testing.assert_allclose(out["rays_patch_color"].numpy(),
+                               np.asarray(ref["rays_patch_color"]), atol=1e-6)
+    assert out["rays_patch_mask"].shape == (n, 1) and out["rays_patch_mask"].dtype == torch.bool
+    np.testing.assert_array_equal(out["rays_patch_mask"].numpy(),
+                                  np.asarray(ref["rays_patch_mask"]))
+    # strict bounds: a pixel exactly h from a border is outside the mask
+    edge = sample_random_rays(tds.scene, 1, 4, px=torch.tensor([h_patch, h_patch + 1, 20, 20]),
+                              py=torch.tensor([10, 10, tds.H - h_patch, tds.H - h_patch - 1]),
+                              crop_patch=True, h_patch_size=h_patch)
+    assert edge["rays_patch_mask"][:, 0].tolist() == [False, True, False, True]
+    np.testing.assert_allclose(out["rays"].numpy(), np.asarray(ref["rays"]), atol=1e-6)
+    # without the crop the two entries are None, as in the JAX package
+    plain = sample_random_rays(tds.scene, 1, n, px=torch.tensor(px), py=torch.tensor(py))
+    assert plain["rays_patch_color"] is None and plain["rays_patch_mask"] is None
+
+
+def test_ref_src_info_matches_jax(scenes):
+    _, tdir = scenes
+    jds = JDataset(JDatasetConfig(data_dir=tdir, dataset_name="general"))
+    tds = TDataset(TDatasetConfig(data_dir=tdir, dataset_name="general"), "cpu")
+    assert tds.scene["ref_src_pairs"].dtype == torch.long
+    np.testing.assert_array_equal(tds.scene["ref_src_pairs"].numpy(), tds.ref_src_pairs)
+    for idx in range(SCENE["n_views"]):
+        for num in (8, 1):
+            ref = j_ref_src_info(jds.scene, jds.ref_src_pairs, idx, num)
+            out = ref_src_info(tds.scene, idx, num)
+            n_src = min(num, SCENE["n_views"] - 1)
+            assert out[3].shape == (n_src, 3, SCENE["H"], SCENE["W"])
+            for a, b in zip(out, ref):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    # the images are the channel-first view of a channel-last copy
+    assert ref_src_info(tds.scene, 0)[3].permute(0, 2, 3, 1).is_contiguous()

@@ -1,8 +1,9 @@
-"""The port's stage-1 training step against the JAX package's, end to end on
-the CPU at a small config (2-layer skip net of width 64, 16 rays, 16 + 8
-samples, 8 outside): loss, the 19 metrics, the parameter gradients and the
-Adam update; then a short ``Runner.train`` with a checkpoint round trip and
-the import of a JAX checkpoint."""
+"""The port's training step against the JAX package's, end to end on the CPU
+at a small config (2-layer skip net of width 64, 16 rays, 16 + 8 samples, 8
+outside): loss, the 19 metrics, the parameter gradients and the Adam update,
+for stage 1 and for the blending finetune under both warp samplers; then a
+short ``Runner.train`` with a checkpoint round trip, the import of a JAX
+checkpoint, and a finetune that starts from a saved stage-1 checkpoint."""
 
 import dataclasses
 import json
@@ -72,11 +73,11 @@ def jax_noise(key, batch, h, w, n_outside):
     return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
 
 
-def sched_at(cfg, step):
+def sched_at(cfg, step, is_finetune=False):
     c = cfg.color_loss
     s = schedules.compute_step_schedules(
         step, cfg.train, c.color_base_weight, c.color_weight, c.color_pixel_weight,
-        c.color_patch_weight, is_finetune=False, reg_weights_schedule=False, same_lr=False,
+        c.color_patch_weight, is_finetune=is_finetune, reg_weights_schedule=False, same_lr=False,
         beta_trainable=True, variance_trainable=True)
     return dataclasses.asdict(s)
 
@@ -158,6 +159,173 @@ def test_one_step_matches_jax(scene_dir, tmp_path, monkeypatch, sampling):
                 np.testing.assert_allclose(toptim.get_path(tree_t, path).detach().numpy(), aj,
                                            rtol=2.5e-7, atol=0,
                                            err_msg=f"step {n_step} {path}")
+
+
+def blending_raw(scene_dir, exp_dir, sampler, end_iter=6):
+    raw = raw_config(scene_dir, exp_dir, end_iter)
+    raw["color_loss"] = {"color_base_weight": 0.01, "color_weight": 1.0,
+                         "color_pixel_weight": 0.1, "color_patch_weight": 0.1, "h_patch_size": 2}
+    raw["model"]["udf_renderer"] = {"n_samples": 16, "n_importance": 0, "n_outside": 8,
+                                    "h_patch_size": 2, "warp_sampler": sampler,
+                                    "blend_top_k": 8, "blend_chunk": 4}
+    return raw
+
+
+@pytest.fixture(scope="module")
+def strip_scene_dir(tmp_path_factory):
+    """Views of one TPU strip exactly (64 x 256): the Pallas sampler loses no
+    position, so its mask is the in-image mask."""
+    d = tmp_path_factory.mktemp("torch_step_ft") / "sphere"
+    # the sphere fills the height of the frame, so a fair share of rays hits it
+    generate_scene(str(d), kind="sphere", n_views=4, H=64, W=256, focal=180.0)
+    return str(d)
+
+
+def key_with_hits(scene, img_idx, batch, h, w, n_outside, at_least):
+    """A JAX key whose pixel draws put at least ``at_least`` rays on the object."""
+    for seed in range(200):
+        key = jax.random.PRNGKey(seed)
+        noise = jax_noise(key, batch, h, w, n_outside)
+        hits = int((scene["masks"][img_idx][noise["py"].long(), noise["px"].long(), 0] > 0).sum())
+        if hits >= at_least:
+            return key, noise
+    raise AssertionError("no key found")
+
+
+def white_noise_images(shape):
+    """8-bit white noise in place of the rendered views. The geometry
+    gradient of a blended colour is a sum of colour differences between
+    neighbouring samples; on the smooth shading of the sphere these are
+    ~1e-3, no larger than the error of the TPU kernel's bf16 column weights,
+    and its gradients then differ from the exact gathers' by 80% (measured;
+    the loss by 1.5e-4). White noise makes the differences O(0.3), so that
+    the two samplers can be compared. k/256 is exact in bf16."""
+    return (np.random.RandomState(11).randint(0, 256, shape) / 256.0).astype(np.float32)
+
+
+# Tolerances of one blending step. gather: f32 gathers on both sides and
+# uniform samples, as in the stage-1 case (metrics rtol 1e-4); the surface is
+# sharpened here (inv_s = e^6) and the scalar leaves (beta, gamma, variance)
+# reach 1.1e-4 of their gradient on the rendered views and 9.4e-5 on white
+# noise. strip: the Pallas kernel (interpret mode) rounds its column weights
+# to bf16 (5e-3 on a colour), the port samples in f32; the blended losses are
+# means of such colours (2.4e-4 measured) and the gradients carry their
+# share of it (1.6e-2 measured on beta and gamma, 7e-3 and less elsewhere).
+BLEND_STEP_TOL = {"gather": dict(metric_rtol=1e-4, grad=3e-4),
+                  "strip": dict(metric_rtol=5e-3, grad=3e-2)}
+
+
+@pytest.mark.parametrize("sampler", ["gather", "strip"])
+def test_one_blending_step_matches_jax(strip_scene_dir, tmp_path, monkeypatch, sampler):
+    tol = BLEND_STEP_TOL[sampler]
+    raw = blending_raw(strip_scene_dir, str(tmp_path), sampler)
+    jcfg, tcfg = jconfig.from_dict(raw), tconfig.from_dict(raw)
+    sched = sched_at(tcfg, 5, is_finetune=True)
+    assert sched["color_pixel_weight"] > 0 and sched["color_patch_weight"] > 0
+    img_idx = 2
+
+    jds = JDataset(jcfg.dataset)
+    params_j = jrunner.init_params(jax.random.PRNGKey(0), jcfg)
+    params_j["nerf"]["alpha"]["b"] = params_j["nerf"]["alpha"]["b"] + 1.0
+    # a sharp surface (inv_s = e^6), so that the rays on the initial sphere
+    # gather weight above 0.5 and their patches count in the loss
+    params_j["variance"]["variance"] = params_j["variance"]["variance"] * 0.0 + 0.6
+    opt_j = joptim.init_adam_state(params_j)
+    monkeypatch.setattr(jstep, "tree_adam_step", lambda p, g, s, lr_fn, tr_fn: (g, s))
+    body_j = jax.jit(jstep.build_step_body(jcfg, JRenderer(jcfg.model), blending=True))
+    tds = TDataset(tcfg.dataset, "cpu")
+    images = white_noise_images(tuple(tds.scene["images"].shape))
+    jds.scene = dict(jds.scene, images=jnp.asarray(images))
+    tds.scene["images"] = torch.tensor(images)
+    key, noise = key_with_hits(tds.scene, img_idx, BATCH, tds.H, tds.W,
+                               tcfg.model.udf_renderer.n_outside, at_least=6)
+    grads_j, _, metrics_j = body_j(params_j, opt_j, jds.scene, jds.ref_src_pairs,
+                                   jnp.asarray(img_idx), key, sched)
+    monkeypatch.undo()
+
+    params_t = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, params_j))
+    renderer_t = TRenderer(tcfg.model)
+    loss_fn = tstep.build_loss_fn(tcfg, renderer_t, blending=True)
+    total, metrics_t = loss_fn(params_t, tds.scene, img_idx, sched, noise=noise)
+
+    assert set(metrics_t) == set(tstep.METRIC_KEYS)
+    for name in tstep.METRIC_KEYS:
+        np.testing.assert_allclose(float(metrics_t[name]), float(metrics_j[name]),
+                                   rtol=tol["metric_rtol"], atol=1e-6, err_msg=name)
+    assert float(metrics_t["color_pixel_loss"]) > 0 and float(metrics_t["color_patch_loss"]) > 0
+    cover = float(metrics_t["blend_strip_cover"])
+    assert cover == 1.0 if sampler == "gather" else 0.0 < cover <= 1.0
+
+    grads_t = tstep.param_grads(total, params_t)
+    for path, gj in toptim.leaves(jax.tree_util.tree_map(np.asarray, grads_j)):
+        gt = grads_t[path]
+        gt = np.zeros_like(gj) if gt is None else gt.numpy()
+        scale = max(float(np.abs(gj).max()), 1e-6)
+        np.testing.assert_allclose(gt / scale, gj / scale, atol=tol["grad"], err_msg=str(path))
+    # the blending logits (the colour net's last outputs) are trained
+    assert float(np.abs(np.asarray(grads_j["color"]["main"]["lin2"]["b"])[3:]).max()) > 0.0
+
+    # updated parameters: each framework's Adam on its own gradients. The
+    # first update is ~lr * sign(g), so an element whose gradient is near
+    # zero may flip its sign and move by 2 lr; all others agree to f32.
+    lr_fn = joptim.make_lr_fn(sched["lr_geo"], sched["lr_main"], sched["lr_main"])
+    tr_fn = joptim.make_trainable_fn(jcfg.model.beta_network, 1.0, 1.0)
+    new_j, _ = joptim.tree_adam_step(params_j, grads_j, opt_j, lr_fn, tr_fn)
+    opt_t = toptim.init_adam_state(params_t)
+    body_t = tstep.build_step_body(tcfg, renderer_t, blending=True)
+    metrics_b = body_t(params_t, opt_t, tds.scene, img_idx, sched, noise=noise)
+    assert float(metrics_b["loss"]) == pytest.approx(float(total.detach()), rel=1e-6)
+    lr = max(sched["lr_geo"], sched["lr_main"])
+    n_all = n_off = 0
+    for path, aj in toptim.leaves(jax.tree_util.tree_map(np.asarray, new_j)):
+        at = toptim.get_path(params_t, path).detach().numpy()
+        np.testing.assert_allclose(at, aj, atol=2.01 * lr, rtol=0, err_msg=str(path))
+        n_all += aj.size
+        n_off += int((np.abs(at - aj) > 1e-6 + 1e-5 * np.abs(aj)).sum())
+    assert n_off / n_all < (0.01 if sampler == "gather" else 0.05), (n_off, n_all)
+
+
+def test_patch_size_must_agree(scene_dir, tmp_path):
+    raw = blending_raw(scene_dir, str(tmp_path), "gather")
+    raw["color_loss"]["h_patch_size"] = 3
+    tcfg = tconfig.from_dict(raw)
+    with pytest.raises(ValueError, match="h_patch_size"):
+        tstep.build_loss_fn(tcfg, TRenderer(tcfg.model), blending=True)
+    tstep.build_loss_fn(tcfg, TRenderer(tcfg.model), blending=False)  # stage 1 does not care
+
+
+@pytest.mark.parametrize("sampler", ["auto", "strip"])
+def test_runner_finetune_from_stage1_checkpoint(scene_dir, tmp_path, sampler):
+    """Stage 1 saves a checkpoint; a finetune runner loads it, restarts the
+    schedule clock and trains blending iterations (on the CPU 'auto' is the
+    gather sampler and 'strip' runs the plain version of K3)."""
+    raw = blending_raw(scene_dir, str(tmp_path), sampler, end_iter=3)
+    stage1 = dict(raw, color_loss={"h_patch_size": 2})
+    r1 = TRunner(tconfig.from_dict(stage1), device="cpu", seed=3)
+    r1.train()
+    assert r1.iter_step == 3 and r1._latest_checkpoint().endswith("ckpt_000003.ckpt")
+    assert set(r1._step_bodies) == {False}  # stage 1 ran no blending step
+    n_stage1 = 3
+
+    raw["train"]["end_iter"] = 4
+    ft = TRunner(tconfig.from_dict(raw), device="cpu", seed=4, is_continue=True,
+                 is_finetune=True)
+    assert ft.iter_step == 0  # the finetune restarts the clock
+    for (path, a), (_, b) in zip(toptim.leaves(r1.params), toptim.leaves(ft.params)):
+        np.testing.assert_array_equal(a.detach().numpy(), b.detach().numpy(), err_msg=str(path))
+    ft.train()
+    assert ft.iter_step == 4 and set(ft._step_bodies) == {True}
+    log_path = tmp_path / "step" / "logs" / "metrics.jsonl"
+    rows = [json.loads(l) for l in log_path.read_text().splitlines()]
+    assert len(rows) == n_stage1 + 4
+    for row in rows[:n_stage1]:
+        assert row["color_pixel_loss"] == 0.0 and row["color_patch_loss"] == 0.0
+        assert row["blend_strip_cover"] == 1.0
+    for row in rows[n_stage1:]:
+        assert all(np.isfinite(row[k]) for k in tstep.METRIC_KEYS)
+        assert row["color_pixel_loss"] > 0.0 and row["color_patch_loss"] > 0.0
+        assert 0.0 < row["blend_strip_cover"] <= 1.0
+        assert (row["blend_strip_cover"] == 1.0) == (sampler == "auto")
 
 
 def test_runner_train_checkpoint_and_jax_import(scene_dir, tmp_path):
