@@ -11,8 +11,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. kernels K1 (fused distance forward) and K2 (its second-order backward)
    at the main path's width (58,368 points, the 8x256 net of
    ``confs/synthetic_smoke.conf``, its ``abs`` head), both tiers, against the
-   explicit plain version and the autograd plain version; then the same
-   for the ``square`` and ``sdf`` heads at 4,096 points;
+   explicit plain version and the autograd plain version, and K2 twice on
+   the same inputs for bit-equal W̄ and b̄; then the same for the ``square``
+   and ``sdf`` heads at 4,096 points, and for the ``abs`` head at 5,000
+   points (not a multiple of the 128-row tile) and at 300 (one partly empty
+   tile of K1);
 4. the synthetic sphere scene (16 views, 600x800) with the port's generator;
 5. one training loss and its gradients on a small batch through the kernels
    (tier "highest") against the plain autograd path;
@@ -58,6 +61,7 @@ FT_CONF = ROOT / "confs" / "udf_dtu_blending_ft.conf"
 
 N_POINTS = 512 * 114  # rays x (64 + 50 up-sampled) samples of one training step
 N_OTHER_HEADS = 4096  # points for the heads the main path does not use
+N_RAGGED = (5000, 300)  # point counts that end in a partly empty row tile, and a single tile
 N_WINDOWS = 4  # training windows on the stage-1 main path (50 iterations each)
 FT_STEPS = 100  # steps of the finetune main path
 # the finetune's schedule lengths (50,000 steps as published) cut like its
@@ -76,10 +80,11 @@ PEAK_BYTES = 3.35e12
 # Tolerances, as max |kernel - reference| / max |reference| per output.
 # "highest" against the explicit version: the same f32 arithmetic, summed in
 # another order. "default" against the explicit version at the same tier:
-# both round every matmul operand to bf16, but an activation that differs by
-# an f32 ulp may round to the neighbouring bf16 value (2^-8 relative), and
-# the second-order terms amplify that. Against the f32 autograd version,
-# "default" carries bf16's whole error.
+# both round every matmul operand, and the sigma(100a) and q that the reverse
+# sweep reads back, to bf16; but an activation that differs by an f32 ulp (the
+# kernels use the fast exp, log and divide) may round to the neighbouring bf16
+# value (2^-8 relative), and the second-order terms amplify that. Against the
+# f32 autograd version, "default" carries bf16's whole error.
 TOL = {
     ("highest", "explicit"): 1e-4,
     ("highest", "autograd"): 1e-4,
@@ -200,8 +205,12 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS):
     for tier in ("highest", "default"):
         k_fwd = fd.fused_forward(x, wflat, bflat, lay, tier)
         torch.cuda.synchronize()
-        k_bwd = true_layout(fd.fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar))
+        raw_bwd = fd.fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
         torch.cuda.synchronize()
+        again = fd.fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
+        if not all(torch.equal(a, b) for a, b in zip(raw_bwd, again)):
+            raise AssertionError(f"K2 ({tier}) is not bit-reproducible from run to run")
+        k_bwd = true_layout(raw_bwd)
         with torch.no_grad():
             e_fwd = fd.explicit_forward(x, wflat, bflat, lay, tier)
             e_bwd = true_layout(fd.explicit_backward(x, wflat, bflat, lay, tier,
@@ -471,13 +480,36 @@ def time_kernels(ucfg, kin, card):
                 lambda: fd.explicit_forward(x, wflat, bflat, lay, tier), 3)
             times[("K2plain", tier)] = cuda_ms(
                 lambda: fd.explicit_backward(x, wflat, bflat, lay, tier, ub, fb, gb), 3)
+    calls = {"K1": lambda tier: fd.fused_forward(x, wflat, bflat, lay, tier),
+             "K2": lambda tier: fd.fused_backward(x, wflat, bflat, lay, tier, ub, fb, gb)}
     for tier in ("default", "highest"):
         for k in ("K1", "K2"):
+            bound = bound_ms(nbytes[k], flops[k], tier)
+            times[(k + "launches", tier)] = cuda_launches(lambda: calls[k](tier))
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            calls[k](tier)
+            torch.cuda.synchronize()
+            mem = (torch.cuda.max_memory_allocated() - held) / 2**20
             log(f"[time] {k} {tier:8s} kernel {times[(k, tier)]:.3f} ms  plain "
-                f"{times[(k + 'plain', tier)]:.3f} ms  "
-                f"bound {bound_ms(nbytes[k], flops[k], tier):.4f} ms "
-                f"({flops[k] / 1e9:.1f} GFLOP, {nbytes[k] / 1e6:.1f} MB)  [{card}]")
+                f"{times[(k + 'plain', tier)]:.3f} ms  bound {bound:.4f} ms "
+                f"({100 * bound / times[(k, tier)]:.1f}% of it reached; "
+                f"{flops[k] / 1e9:.1f} GFLOP, {nbytes[k] / 1e6:.1f} MB)  "
+                f"{times[(k + 'launches', tier)]} CUDA launches, {mem:.0f} MiB of outputs and "
+                f"scratch a call  [{card}]")
     return times, nbytes, flops
+
+
+def cuda_launches(fn) -> int:
+    """Device kernels and memsets one call of fn enqueues (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def bound_ms(nbytes: float, flops: float, tier: str) -> float:
@@ -536,7 +568,8 @@ def profile_step(runner, n_steps: int = 5, top: int = 14) -> dict:
         f"{busy:.2f} ms of {wall_ms / n_steps:.2f} ms wall (idle share "
         f"{1 - busy * n_steps / wall_ms:.2f}, under the profiler)")
     # the top rows, and the port's own kernels wherever they rank
-    own = ("gemm_kernel", "colsum_kernel", "pe_kernel", "ss_kernel")
+    own = ("sweep_kernel", "wgrad_kernel", "pack_bf16_kernel", "reduce_kernel", "gemm_kernel",
+           "colsum_kernel", "pe_kernel", "ss_kernel")
     for rank, (ms, count, key) in enumerate(rows):
         if rank < top or key.startswith(own) or key.startswith(tuple("void " + o for o in own)):
             log(f"  {ms:8.3f} ms  x{count:<6.0f} {key[:90]}")
@@ -609,7 +642,10 @@ def main() -> int:
     for head in sorted(set(fd.HEADS) - {ucfg.udf_type}):  # the heads the main path does not run
         log(f"[kernels] K1/K2 with the '{head}' head at N={N_OTHER_HEADS}")
         check_kernels(dataclasses.replace(ucfg, udf_type=head), dev, N_OTHER_HEADS)
-    log(f"[kernels] ok in {time.time() - t0:.1f} s")
+    for n in N_RAGGED:
+        log(f"[kernels] K1/K2 at N={n}: a partly empty row tile")
+        check_kernels(ucfg, dev, n)
+    log(f"[kernels] ok in {time.time() - t0:.1f} s; K2's outputs bit-equal over two calls")
 
     t0 = time.time()
     if not (scene_dir / "cameras.npz").is_file():
@@ -669,6 +705,7 @@ def main() -> int:
             "launches_by_path": {"stage1": launches_stage1[k], "finetune": launches_ft[k]},
             "max_abs_err": max(errors[(k, tier, "explicit", o)][0] for o in outs),
             "ms": times[(k, tier)], "plain_ms": times[(k + "plain", tier)],
+            "cuda_launches_per_call": times[(k + "launches", tier)],
             "bound_ms": bound_ms(nbytes[k], flops[k], tier),
             "bound_by": "operations" if flops[k] / PEAK_FLOPS[tier] > nbytes[k] / PEAK_BYTES
             else "bytes",

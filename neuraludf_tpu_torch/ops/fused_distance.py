@@ -21,8 +21,12 @@ The Function takes the explicit version only for tensors on the CPU; a
 CUDA tensor launches the kernels or raises.
 
 Tiers (``cfg.fused_precision``): "highest" = f32 operands on the CUDA cores;
-"default" = bf16 operands with f32 accumulation on the tensor cores (the
-explicit version rounds its matmul operands to bf16 the same way).
+"default" = bf16 operands with f32 accumulation on the tensor cores. There
+the kernels also keep what the reverse sweep reads back from the forward one
+in bf16: sigma(100 a) and, for K2, q = 100 sigma (1 - sigma) t_a. The explicit
+version rounds its matmul operands and these two to bf16 the same way, so it
+stays the kernels' arithmetic step by step. The "default" kernels take the
+widths they were written for (``default_tier_takes``); another net raises.
 """
 
 from __future__ import annotations
@@ -41,8 +45,12 @@ from ..nets import fields
 from ..nets.mlp import softplus100, weight
 from . import build
 
-TILE = 64  # the kernels' row and column tile; every padded width is a multiple
-W_SPLITS = 64  # split-K partial sums of the weight cotangent
+TILE = 64  # the kernels' column tile; every padded width is a multiple
+ROW_TILE = {"highest": 64, "default": 128}  # rows are padded to the tier's row tile
+# split-K partial sums of the weight cotangent ("default": 20 output tiles x 13
+# splits are two waves of blocks on 132 SMs)
+W_SPLITS = {"highest": 64, "default": 13}
+SWEEP_WIDTH = 256  # hidden width of the "default" kernels' sweeps
 HEADS = {"abs": 0, "square": 1, "sdf": 2}
 TIERS = ("default", "highest")
 
@@ -169,6 +177,16 @@ def layout_for(cfg: UDFNetworkConfig) -> Layout:
                   tuple(kp), tuple(np_), tuple(kh), tuple(skip), tuple(h_true), tuple(n_true))
 
 
+def default_tier_takes(lay: Layout) -> bool:
+    """Whether the "default" kernels take this net: their sweeps are written
+    for a 64-wide embedding, 256-wide hidden layers (skips anywhere but into
+    the head) and a head padded to 320 columns, at most 16 linear layers."""
+    n = lay.n_layers
+    return (2 <= n <= 16 and lay.pe_w == TILE and not lay.skip[-1]
+            and all(w == SWEEP_WIDTH for w in lay.np_[:-1])
+            and lay.np_[-1] == SWEEP_WIDTH + TILE)
+
+
 def _row_map(lay: Layout, l: int):
     """(true row slices, padded row starts) of layer l's weight."""
     if l == 0:
@@ -223,10 +241,14 @@ def plain_autograd(x, ws, bs, cfg: UDFNetworkConfig):
     return fields.distance_value_and_gradient_plain(params, x, cfg)
 
 
+def _stored(t: torch.Tensor, tier: str) -> torch.Tensor:
+    """A value as the kernels keep it between sweeps: bf16 at tier "default"."""
+    return t.to(torch.bfloat16).float() if tier == "default" else t
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
-    if tier == "default":  # the kernels' bf16 operands, f32 accumulation
-        a, b = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
-    return a @ b
+    # the kernels' bf16 operands, f32 accumulation
+    return _stored(a, tier) @ _stored(b, tier)
 
 
 def _pe(x: torch.Tensor, lay: Layout):
@@ -299,7 +321,7 @@ def explicit_forward(x, wflat, bflat, lay: Layout, tier: str):
         kh = lay.kh[l]
         eps = eps + d[:, kh:] if d.shape[1] > kh else eps
         if l > 0:
-            g = torch.sigmoid(100.0 * acts[l - 1]) * d[:, :kh]
+            g = _stored(torch.sigmoid(100.0 * acts[l - 1]), tier) * d[:, :kh]
     grad = lay.scale * _coord_sum(d1 * eps, lay)
     return udf[:, None], acts[-1][:, 1:lay.d_out], grad
 
@@ -335,7 +357,9 @@ def explicit_backward(x, wflat, bflat, lay: Layout, tier: str, ubar, fbar, gbar)
             ebar = ebar + da[:, kh:]
         if l > 0:
             sg = torch.sigmoid(100.0 * acts[l - 1])
-            abar = sg * da[:, :kh] + 100.0 * sg * (1.0 - sg) * tacts[l - 1] * dg[:, :kh]
+            q = _stored(100.0 * sg * (1.0 - sg) * tacts[l - 1], tier)
+            sg = _stored(sg, tier)
+            abar = sg * da[:, :kh] + q * dg[:, :kh]
             gam = sg * dg[:, :kh]
     xbar = s * _coord_sum(d1 * ebar, lay) + s * s * gbar * _coord_sum(d2 * eps, lay)
     return xbar, wbar, bbar
@@ -351,8 +375,8 @@ def library() -> ctypes.CDLL:
     """csrc/fused_distance.cu, built at first use, with its argument types."""
     lib = build.load("fused_distance")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fd_scratch_floats.argtypes = [I, P, I, I, I, I]
-    lib.fd_scratch_floats.restype = ctypes.c_size_t
+    lib.fd_scratch_bytes.argtypes = [I, P, I, I, I, I, I, I]
+    lib.fd_scratch_bytes.restype = ctypes.c_size_t
     lib.fd_forward.argtypes = [P, P, P, I, P, I, I, F, I, I, I, I, P, P, P, P, P]
     lib.fd_forward.restype = I
     lib.fd_backward.argtypes = [P, P, P, I, P, I, I, F, I, I, I, I, P, P, P, P, P, P, P, I, P]
@@ -393,9 +417,24 @@ class _Kernel:
         _check(x, "x", x.shape, x.device)
         _check(wflat, "wflat", (lay.w_offsets()[-1],), x.device)
         _check(bflat, "bflat", (lay.b_offsets()[-1],), x.device)
+        if tier == "default" and not default_tier_takes(lay):
+            raise ValueError(
+                f"{self.name}: the 'default' kernels take a {TILE}-wide embedding, "
+                f"{SWEEP_WIDTH}-wide hidden layers and a head of {SWEEP_WIDTH + 1} to "
+                f"{SWEEP_WIDTH + TILE} outputs; use fused_precision='highest' for {lay}")
         dims = (ctypes.c_int * (4 * lay.n_layers))(*lay.dims())
-        rows = _round_up(x.shape[0], TILE)
+        rows = _round_up(x.shape[0], ROW_TILE[tier])
         return dims, rows
+
+    def _scratch(self, lay: Layout, dims, rows: int, tier: str, backward: bool, dev):
+        """The call's scratch buffer; call with dev current (the size
+        depends on the card's SM count)."""
+        n = library().fd_scratch_bytes(lay.n_layers, ctypes.addressof(dims), lay.pe_w,
+                                       lay.multires, rows, int(backward), W_SPLITS[tier],
+                                       int(tier == "default"))
+        if n == 0:
+            raise ValueError(f"{self.name}: layout rejected by the kernel: {lay}")
+        return torch.empty(n, dtype=torch.uint8, device=dev)
 
     @staticmethod
     def _raise_on(rc: int, name: str):
@@ -412,11 +451,8 @@ class _ForwardKernel(_Kernel):
         udf = torch.empty((rows, 1), dtype=torch.float32, device=dev)
         feat = torch.empty((rows, lay.d_out - 1), dtype=torch.float32, device=dev)
         grad = torch.empty((rows, 3), dtype=torch.float32, device=dev)
-        n_scr = lib.fd_scratch_floats(lay.n_layers, ctypes.addressof(dims), lay.pe_w, rows, 0, 0)
-        if n_scr == 0:
-            raise ValueError(f"{self.name}: layout rejected by the kernel: {lay}")
-        scratch = torch.empty(n_scr, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
+            scratch = self._scratch(lay, dims, rows, tier, False, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.fd_forward(
                 xp.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), lay.n_layers,
@@ -440,19 +476,15 @@ class _BackwardKernel(_Kernel):
         xbar = torch.empty((rows, 3), dtype=torch.float32, device=dev)
         wbar = torch.empty_like(wflat)
         bbar = torch.empty_like(bflat)
-        n_scr = lib.fd_scratch_floats(lay.n_layers, ctypes.addressof(dims), lay.pe_w, rows, 1,
-                                      W_SPLITS)
-        if n_scr == 0:
-            raise ValueError(f"{self.name}: layout rejected by the kernel: {lay}")
-        scratch = torch.empty(n_scr, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
+            scratch = self._scratch(lay, dims, rows, tier, True, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.fd_backward(
                 xp.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), lay.n_layers,
                 ctypes.addressof(dims), lay.pe_w, lay.multires, lay.scale, HEADS[lay.head],
                 lay.d_out, rows, int(tier == "default"), up.data_ptr(), fp.data_ptr(),
                 gp.data_ptr(), xbar.data_ptr(), wbar.data_ptr(), bbar.data_ptr(),
-                scratch.data_ptr(), W_SPLITS, stream,
+                scratch.data_ptr(), W_SPLITS[tier], stream,
             )
             self.launches += 1
         self._raise_on(rc, self.name)
