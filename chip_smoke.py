@@ -34,12 +34,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``confs/udf_dtu_blending_ft.conf`` (``is_finetune``) loads the stage-1
    checkpoint and trains 100 steps at full width; K1, K2 and K3 must each
    launch once a step, the pixel and patch losses must be nonzero;
-10. CUDA-event times of K1, K2, K3, their plain versions and K3's library
+10. ``[mesh]`` on the stage-1 runner's field (its 200-step state): the
+    MeshUDF grid at 64³ on the card against the same on the CPU; the CLI's
+    closing extraction (``extract_udf_mesh`` at 512³, world space, distance
+    threshold ratio 5) with the CUDA-event time and peak memory of the grid
+    fill and the host-clock time of each stage; ``validate_mesh`` at 256³;
+    an incremental extraction at 256³ against its full fill; the Chamfer
+    distance of the 512³ mesh to the sphere's surface (a record, no bound);
+11. CUDA-event times of K1, K2, K3, their plain versions and K3's library
     call; the host-clock time and the profile of a steady step of each path.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
-nothing of the JAX package. Build outputs and the scene go under ``build/``.
+nothing of the JAX package. Build outputs (the CUDA kernels, the
+marching-cubes engine), the scene and the meshes go under ``build/``.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -106,6 +115,18 @@ TOL_K3 = {"plain": 1e-5, "library": 5e-4}
 # cancellation turns the 2e-7 into 3e-3 of a colour-net leaf's gradient
 # (measured; the pixel-blending term alone agrees to 2e-7).
 TOL_STEP_BLENDING = {"ssim": 1e-2, "l1": TOL_STEP}
+# The mesh phase. The CLI's closing extraction is at 512³
+# (--final_mesh_resolution); validate_mesh and the incremental check at the
+# runner's default 256³; the card-against-CPU grid at 64³.
+MESH_RES, MESH_CHECK_RES, MESH_PARITY_RES = 512, 256, 64
+# Grid on the card against the CPU, both true f32 (TF32 off): udf absolute,
+# normals absolute where both are nonzero, and the band (udf < 2 voxel) may
+# differ only within 1e-6 of its edge.
+TOL_GRID = {"udf": 1e-5, "normals": 1e-4, "band_edge": 1e-6}
+# Chamfer of the 512³ mesh to 200,000 points of the sphere, unit scale: the
+# mesh sampled every 0.002 (half a 512³ voxel), distances over 0.1 dropped,
+# precision and recall at 0.005 and 0.01.
+CHAMFER = {"downsample_density": 0.002, "max_dist": 0.1, "thresh1": 0.005, "thresh2": 0.01}
 
 
 def log(msg: str) -> None:
@@ -438,6 +459,153 @@ def check_finetune_rows(rows):
         f"psnr {mean('psnr'):.2f}")
 
 
+def grid_parity(runner):
+    """The MeshUDF grid at 64³ on the card against the same parameters on
+    the CPU."""
+    from neuraludf_tpu_torch import convert
+    from neuraludf_tpu_torch.mesh import grid
+
+    ucfg, R = runner.cfg.model.udf_network, MESH_PARITY_RES
+    on_cpu = {"udf": convert.to_torch(convert.to_numpy(runner.params["udf"]), "cpu")}
+    u_card, n_card = grid.udf_and_normals_grid(runner.params, ucfg, R)
+    u_cpu, n_cpu = grid.udf_and_normals_grid(on_cpu, ucfg, R)
+    band_card, band_cpu = (n_card != 0).any(-1), (n_cpu != 0).any(-1)
+    at_edge = abs(u_cpu - 2 * (2.0 / (R - 1))) < TOL_GRID["band_edge"]
+    differ = int(((band_card != band_cpu) & ~at_edge).sum())
+    both = band_card & band_cpu
+    if not both.any():
+        raise AssertionError("the 64³ grid has no near-surface band")
+    udf_err = float(abs(u_card - u_cpu).max())
+    nrm_err = float(abs(n_card[both] - n_cpu[both]).max())
+    log(f"  grid {R}³ card vs CPU: udf max_abs_err={udf_err:.3e} tol={TOL_GRID['udf']:.0e}; "
+        f"normals max_abs_err={nrm_err:.3e} tol={TOL_GRID['normals']:.0e} over {int(both.sum())} "
+        f"band points; band masks differ at {differ} points away from the edge")
+    if udf_err > TOL_GRID["udf"] or nrm_err > TOL_GRID["normals"] or differ:
+        raise AssertionError("the grid on the card disagrees with the CPU's")
+    return {"udf_err": udf_err, "normals_err": nrm_err}
+
+
+def time_grid_fill(runner, card):
+    """CUDA-event times and peak device memory of the 512³ grid fill and of
+    the near band's normals, with the operations of the fill's forward
+    passes (2 per multiply-add) against the f32 peak."""
+    from neuraludf_tpu_torch.mesh import grid
+    from neuraludf_tpu_torch.nets import fields
+
+    ucfg, R, p = runner.cfg.model.udf_network, MESH_RES, runner.params["udf"]
+    dims, d0 = fields.distance_dims(ucfg)
+    macs = sum(dims[l] * (dims[l + 1] - d0 if (l + 1) in ucfg.skip_in else dims[l + 1])
+               for l in range(ucfg.n_layers + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    udf = grid.fill_on_device(p, ucfg, [-1, -1, -1], [1, 1, 1], R)
+    ev[1].record()
+    normals = grid.band_normals_on_device(p, ucfg, udf, R)
+    ev[2].record()
+    ev[2].synchronize()
+    n_band = int((normals != 0).any(-1).sum())
+    out = {"fill_ms": ev[0].elapsed_time(ev[1]), "band_ms": ev[1].elapsed_time(ev[2]),
+           "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30, "band_points": n_band,
+           "fill_tflop": 2.0 * R ** 3 * macs / 1e12}
+    out["fill_bound_ms"] = out["fill_tflop"] * 1e12 / PEAK_FLOPS["highest"] * 1e3
+    del udf, normals
+    log(f"[time] grid fill {R}³ ({R ** 3} points, {out['fill_tflop']:.1f} TFLOP f32): "
+        f"{out['fill_ms']:.1f} ms on the device (bound {out['fill_bound_ms']:.1f} ms, "
+        f"{100 * out['fill_bound_ms'] / out['fill_ms']:.1f}% of it reached); band normals "
+        f"({n_band} points) {out['band_ms']:.1f} ms; peak device memory "
+        f"{out['peak_gib']:.2f} GiB above the resident {held / 2**30:.2f} GiB  [{card}]")
+    return out
+
+
+def geometry_close(va, fa, vb, fb, voxel) -> tuple:
+    """The contract of two extractions of one field: face counts within 3%,
+    mean nearest-vertex distance below voxel/100, maximum below voxel."""
+    from scipy.spatial import cKDTree
+
+    d = cKDTree(vb).query(va, k=1)[0]
+    ok = abs(len(fa) - len(fb)) <= 0.03 * len(fb) and d.mean() < voxel / 100 and d.max() < voxel
+    return ok, float(d.mean()), float(d.max())
+
+
+def check_mesh(runner, card):
+    """The [mesh] phase on the runner's field: grid parity, the CLI's
+    closing extraction at 512³, validate_mesh and the incremental
+    extraction at 256³, the Chamfer distance to the sphere."""
+    import numpy as np
+
+    from neuraludf_tpu_torch.data.synthetic import gt_surface_points
+    from neuraludf_tpu_torch.eval.chamfer import eval_mesh
+    from neuraludf_tpu_torch.mesh import grid, meshudf
+    from neuraludf_tpu_torch.mesh.ply import export_ply, load_ply
+
+    ucfg = runner.cfg.model.udf_network
+    out = {"parity": grid_parity(runner), "fill": time_grid_fill(runner, card)}
+
+    # the CLI's closing extraction
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.time()
+    path = runner.extract_udf_mesh(resolution=MESH_RES, world_space=True,
+                                   dist_threshold_ratio=5.0, timings=timings)
+    total_s = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    verts_w, faces = load_ply(path)
+    sm = runner.dataset.scale_mats_np[0]
+    verts = ((verts_w - sm[:3, 3][None]) / sm[0, 0]).astype(np.float32)
+    voxel = 2.0 / (MESH_RES - 1)
+    if len(faces) == 0 or not np.isfinite(verts).all():
+        raise AssertionError(f"the {MESH_RES}³ mesh is empty or has a non-finite vertex")
+    residual = float(np.abs(grid.query_udf_at(runner.params, ucfg, verts)).mean())
+    out["extract"] = {"verts": len(verts), "faces": len(faces), "total_s": total_s,
+                      "peak_gib": peak, "mean_abs_udf": residual, **timings}
+    log(f"[mesh] extract_udf_mesh {MESH_RES}³: {len(verts)} vertices, {len(faces)} faces in "
+        f"{total_s:.1f} s (host clock: " + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
+        + f"); peak device memory {peak:.2f} GiB; mean |udf| at the vertices {residual:.2e} "
+        f"(limit voxel/2 = {voxel / 2:.2e})  [{card}]")
+    if residual > voxel / 2:
+        raise AssertionError("the extracted vertices do not sit on the zero level")
+
+    t0 = time.time()
+    vm_verts, vm_faces = load_ply(runner.validate_mesh(resolution=MESH_CHECK_RES))
+    out["validate_mesh"] = {"faces": len(vm_faces), "s": time.time() - t0}
+    log(f"[mesh] validate_mesh {MESH_CHECK_RES}³: {len(vm_verts)} vertices, {len(vm_faces)} "
+        f"faces in {out['validate_mesh']['s']:.1f} s")
+    if len(vm_faces) == 0:
+        raise AssertionError("validate_mesh wrote an empty mesh")
+
+    cache, times = {}, []
+    meshes = []
+    for _ in range(2):
+        t0 = time.time()
+        meshes.append(meshudf.get_mesh_udf(runner.params, ucfg, resolution=MESH_CHECK_RES,
+                                           dist_threshold_ratio=5.0, cache=cache))
+        times.append(time.time() - t0)
+    (v_full, f_full), (v_inc, f_inc) = meshes
+    ok, d_mean, d_max = geometry_close(v_inc, f_inc, v_full, f_full, 2.0 / (MESH_CHECK_RES - 1))
+    out["incremental"] = {"full_s": times[0], "incremental_s": times[1], "faces_full": len(f_full),
+                          "faces_incremental": len(f_inc), "nn_mean": d_mean, "nn_max": d_max}
+    log(f"[mesh] incremental {MESH_CHECK_RES}³: full {times[0]:.2f} s ({len(f_full)} faces), "
+        f"incremental {times[1]:.2f} s ({len(f_inc)} faces); nearest-vertex distance mean "
+        f"{d_mean:.2e} max {d_max:.2e} (voxel {2.0 / (MESH_CHECK_RES - 1):.2e})  [{card}]")
+    if cache.get("incr_count") != 1 or not ok:
+        raise AssertionError("the incremental extraction disagrees with the full fill")
+
+    normalized = str(BUILD / "smoke_exp" / f"mesh_{MESH_RES}_normalized.ply")
+    export_ply(normalized, verts, faces)
+    t0 = time.time()
+    res = eval_mesh(normalized, gt_surface_points("sphere").astype(np.float64), **CHAMFER)
+    out["chamfer"] = dataclasses.asdict(res)
+    log(f"[mesh] Chamfer of the {MESH_RES}³ mesh to the sphere after {runner.iter_step} steps: "
+        f"{res.chamfer:.5f} (to GT {res.mean_d2s:.5f}, from GT {res.mean_s2d:.5f}; "
+        f"F@{CHAMFER['thresh2']} {res.fscore_2:.3f}) in {time.time() - t0:.1f} s")
+    print(json.dumps({"mesh": out}), flush=True)
+    return out
+
+
 def time_strip_sample(k3in, card):
     """CUDA-event times of K3, its plain version and the library call, and
     the bytes and operations K3 must move and do on these inputs."""
@@ -603,6 +771,7 @@ def main() -> int:
 
     from neuraludf_tpu_torch import config as config_mod
     from neuraludf_tpu_torch.data.synthetic import generate_scene
+    from neuraludf_tpu_torch.mesh import build as mesh_build
     from neuraludf_tpu_torch.ops import build
     from neuraludf_tpu_torch.ops import fused_distance as fd
     from neuraludf_tpu_torch.ops import strip_sample as ss
@@ -614,10 +783,13 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.time()
-    built = build.compile_sources(["fused_distance", "strip_sample"])  # in parallel
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        engine = pool.submit(mesh_build.ensure_built)
+        built = build.compile_sources(["fused_distance", "strip_sample"])  # in parallel
+        engine = engine.result()
     fd.library(), ss.library()
-    log(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in built.items())} "
-        f"in {time.time() - t0:.1f} s")
+    log(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in built.items())}, "
+        f"mesh/csrc -> {engine.name} in {time.time() - t0:.1f} s")
 
     scene_dir = BUILD / "smoke_scene" / "sphere"
     exp_dir = BUILD / "smoke_exp"
@@ -680,6 +852,11 @@ def main() -> int:
     launches_ft, ft_rows = train_main_path(ft_runner, ft_cfg, exp_dir, counters,
                                            ("K1", "K2", "K3"))
     check_finetune_rows(ft_rows)
+
+    t0 = time.time()
+    log(f"[mesh] on the stage-1 field ({runner.iter_step} steps)")
+    check_mesh(runner, card)
+    log(f"[mesh] ok in {time.time() - t0:.1f} s")
 
     times, nbytes, flops = time_kernels(ucfg, kin, card)
     k3_times, k3_bytes, k3_flops = time_strip_sample(k3in, card)

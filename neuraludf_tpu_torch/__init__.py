@@ -12,8 +12,11 @@ Module names follow the JAX package's so each counterpart is easy to find:
   render/        — the occlusion-aware UDF renderer and its samplers
   losses/        — colour, patch and mask losses
   train/         — Adam, schedules, the training step and the runner
+  mesh/          — MeshUDF: grid queries on the device, the host C++
+                   marching cubes (``mesh/csrc/``), cleanup, PLY I/O
+  eval/          — Chamfer / F-score evaluation, DTU mesh cleaning
   convert        — JAX params and checkpoints into the port
-  cli            — the command line (``--mode train``)
+  cli            — the command line (train and the mesh modes)
 
 Entry points run on ``cuda:<gpu>`` unless the caller passes ``device="cpu"``.
 """

@@ -3,8 +3,12 @@
     python -m neuraludf_tpu_torch.cli --conf confs/synthetic_smoke.conf \
         --case sphere --mode train
 
-The argument surface is the JAX package's. ``--mode train`` runs on
-``cuda:<--gpu>``; the other modes are not ported yet and raise.
+The argument surface is the JAX package's. Every mode runs on
+``cuda:<--gpu>``. Modes: train (ending in a MeshUDF extraction at
+``--final_mesh_resolution``), validate_mesh, extract_udf_mesh (alias
+validate_udf_mesh) and validate_fields; the rest are not ported yet and
+raise. The extraction modes read the newest checkpoint with
+``--is_continue``.
 """
 
 from __future__ import annotations
@@ -14,12 +18,9 @@ import logging
 
 log = logging.getLogger(__name__)
 
+MODES = ("train", "validate_mesh", "extract_udf_mesh", "validate_udf_mesh", "validate_fields")
 NOT_PORTED = {
-    "validate_mesh": "slice 3, item 9",
-    "extract_udf_mesh": "slice 3, item 9",
-    "validate_udf_mesh": "slice 3, item 9",
     "validate_image": "slice 4, item 10",
-    "validate_fields": "slice 4, item 10",
     "save_hdf5": "slice 4, item 10",
     "vis_one_ray": "slice 4, item 10",
 }
@@ -58,7 +59,7 @@ def main(argv=None):
     if args.mode in NOT_PORTED:
         raise NotImplementedError(f"--mode {args.mode} is not ported yet "
                                   f"(ROADMAP: {NOT_PORTED[args.mode]})")
-    if args.mode != "train":
+    if args.mode not in MODES:
         raise SystemExit(f"unknown mode {args.mode}")
     if args.vis_ray:
         raise NotImplementedError("--vis_ray is not ported yet (ROADMAP: slice 4, item 10)")
@@ -86,9 +87,18 @@ def main(argv=None):
     runner = Runner(cfg, is_continue=args.is_continue, is_finetune=args.is_finetune,
                     reg_weights_schedule=args.reg_weights_schedule, seed=args.seed,
                     device=default_device(args.gpu))
-    runner.train()
-    log.info("the closing extract_udf_mesh did not run: mesh extraction is not ported yet "
-             "(ROADMAP: slice 3, item 9)")
+    if args.mode == "train":
+        runner.train()
+        runner.extract_udf_mesh(resolution=args.final_mesh_resolution, world_space=True,
+                                dist_threshold_ratio=5.0, algorithm=args.mc_algorithm)
+    elif args.mode == "validate_mesh":
+        runner.validate_mesh(world_space=False, resolution=args.resolution,
+                             threshold=args.threshold)
+    elif args.mode in ("extract_udf_mesh", "validate_udf_mesh"):
+        runner.extract_udf_mesh(resolution=args.resolution, world_space=True,
+                                dist_threshold_ratio=5.0, algorithm=args.mc_algorithm)
+    else:
+        runner.validate_fields(resolution=args.resolution)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,16 @@
-"""Experiment runner, training part (counterpart of
+"""Experiment runner: training and mesh extraction (counterpart of
 ``neuraludf_tpu/train/runner.py``).
 
 The host computes the schedules, drives the beta/variance trainability
 state machine, logs, and saves checkpoints; each iteration runs eagerly on
 the runner's device. Metrics of a whole window of iterations move to the
 host in one transfer, and every iteration's scalars go to
-``<exp>/logs/metrics.jsonl``.
+``<exp>/logs/metrics.jsonl``. Every ``val_mesh_freq`` iterations the runner
+writes the classic and the MeshUDF mesh of the field (``validate_mesh``,
+``extract_udf_mesh``), their grids filled on the runner's device.
 
-Validation renders and mesh extraction are not ported yet (ROADMAP slices 3
-and 4): ``train`` runs without them.
+Validation renders are not ported yet (ROADMAP slice 4): ``train`` runs
+without them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ import torch
 from .. import convert
 from ..config import Config
 from ..data.dataset import Dataset
+from ..mesh import grid as mesh_grid
+from ..mesh import mc as mesh_mc
+from ..mesh.meshudf import get_mesh_udf
+from ..mesh.ply import export_ply
 from ..nets import fields
 from ..render.renderer import UDFRenderer
 from . import schedules as sched_mod
@@ -36,8 +42,7 @@ from .step import METRIC_KEYS, build_step_body
 
 log = logging.getLogger(__name__)
 
-SKIPPED = ("validate, validate_mesh and extract_udf_mesh are not ported yet "
-           "(ROADMAP: slices 3-4); training runs without them")
+SKIPPED = "validate is not ported yet (ROADMAP: slice 4); training runs without it"
 
 
 def init_params(generator: torch.Generator, cfg: Config, device="cpu") -> Dict[str, Any]:
@@ -97,6 +102,7 @@ class Runner:
                                    and not cfg.train.freeze_variance)
         self._beta_flag = True
         self._step_bodies = {}
+        self._mesh_caches = {}  # resolution -> incremental extraction cache
 
         if is_continue:
             latest = self._latest_checkpoint()
@@ -219,11 +225,19 @@ class Runner:
                 self._periodic_actions(k)
 
     def _periodic_actions(self, k: int):
-        """Saves a checkpoint when a multiple of save_freq lies in the last
-        window."""
-        freq = self.cfg.train.save_freq
-        if freq > 0 and self.iter_step // freq > (self.iter_step - k) // freq:
+        """Saves a checkpoint, and writes the validation meshes, when a
+        multiple of save_freq or val_mesh_freq lies in the last window of k
+        iterations."""
+        t = self.cfg.train
+        hit = lambda freq: freq > 0 and self.iter_step // freq > (self.iter_step - k) // freq
+        if hit(t.save_freq):
             self.save_checkpoint()
+        if hit(t.val_mesh_freq):
+            try:
+                self.validate_mesh()
+                self.extract_udf_mesh(world_space=True, dist_threshold_ratio=2.0)
+            except Exception:  # a validation mesh must not end the training
+                log.exception("mesh extraction failed at iter %d", self.iter_step)
 
     def _post_step_host(self, it: int, m: Dict[str, float], t_start: float):
         """Host-side bookkeeping of one iteration, at metric-flush time."""
@@ -246,3 +260,79 @@ class Runner:
                      "ws=%.3f udf_min=%.5f (%.1f it/s)",
                      it, m["loss"], m["color_total_loss"], m["gradient_error"], m["psnr"],
                      m["variance"], m["beta"], m["weight_sum"], m["udf_min"], ips)
+
+    # ------------------------------------------------------------------
+    # mesh extraction
+    # ------------------------------------------------------------------
+
+    def _bbox(self):
+        return (np.asarray(self.dataset.object_bbox_min, np.float32),
+                np.asarray(self.dataset.object_bbox_max, np.float32))
+
+    def _to_world(self, verts: np.ndarray) -> np.ndarray:
+        sm = self.dataset.scale_mats_np[0]
+        return verts * sm[0, 0] + sm[:3, 3][None]
+
+    def _out_path(self, sub: str, name: str) -> str:
+        out = os.path.join(self.base_exp_dir, sub)
+        os.makedirs(out, exist_ok=True)
+        return os.path.join(out, name)
+
+    def validate_mesh(self, world_space: bool = True, resolution: int = 256,
+                      threshold: float = 0.005) -> str:
+        """Classic marching cubes on the raw distance grid of the object's
+        bounding box, written to ``meshes/``.
+
+        model_type 'neus': classic MC runs on the NEGATED signed field at
+        level 0 (inside positive after negation) instead of thresholding an
+        unsigned field."""
+        bound_min, bound_max = self._bbox()
+        u = mesh_grid.extract_fields(self.params, self.cfg.model.udf_network,
+                                     bound_min, bound_max, resolution)
+        if self.model_type == "neus":
+            u, threshold = -u, 0.0
+        verts, faces = mesh_mc.marching_cubes_classic(u, threshold)
+        verts = verts / (resolution - 1.0) * (bound_max - bound_min)[None] + bound_min[None]
+        if world_space:
+            verts = self._to_world(verts)
+        path = self._out_path(
+            "meshes", f"{self.iter_step:0>8d}_thresh{threshold:.4f}_res{resolution}.ply")
+        export_ply(path, verts, faces)
+        return path
+
+    def extract_udf_mesh(self, world_space: bool = False, resolution: int = 256,
+                         dist_threshold_ratio: float = 1.0, algorithm: str = "tets",
+                         timings: Optional[Dict[str, float]] = None) -> str:
+        """MeshUDF gradient-aware extraction, written to ``udf_meshes/``.
+
+        With cfg.train.incremental_mesh, successive extractions at one
+        resolution re-query only the voxels around the previous surface
+        (one cache per resolution). ``timings`` receives the host-clock
+        seconds of each stage (``meshudf.get_mesh_udf``)."""
+        cache = None
+        if self.cfg.train.incremental_mesh:
+            cache = self._mesh_caches.setdefault(resolution, {})
+        timings = {} if timings is None else timings
+        verts, faces = get_mesh_udf(
+            self.params, self.cfg.model.udf_network, resolution=resolution,
+            dist_threshold_ratio=dist_threshold_ratio, cache=cache,
+            signed=self.model_type == "neus", algorithm=algorithm, timings=timings)
+        log.info("extract_udf_mesh %d³ at iter %d: %d faces in %.1f s (%s)", resolution,
+                 self.iter_step, len(faces), sum(timings.values()),
+                 ", ".join(f"{k} {v:.1f} s" for k, v in timings.items()))
+        if world_space:
+            verts = self._to_world(verts)
+        suffix = "" if algorithm == "tets" else f"_{algorithm}"
+        path = self._out_path("udf_meshes",
+                              f"udf_res{resolution}_step{self.iter_step}{suffix}.ply")
+        export_ply(path, verts, faces)
+        return path
+
+    def validate_fields(self, resolution: int = 128) -> str:
+        """The distance grid of the object's bounding box, to ``fields/`` as .npy."""
+        bound_min, bound_max = self._bbox()
+        u = mesh_grid.extract_fields(self.params, self.cfg.model.udf_network,
+                                     bound_min, bound_max, resolution)
+        path = self._out_path("fields", f"{self.iter_step:0>8d}_dist.npy")
+        np.save(path, u)
+        return path

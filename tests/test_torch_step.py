@@ -40,7 +40,9 @@ def raw_config(scene_dir, exp_dir, end_iter=6):
         "dataset": {"data_dir": scene_dir, "dataset_name": "general"},
         "train": {"learning_rate": 5e-4, "learning_rate_geo": 2e-4, "end_iter": end_iter,
                   "batch_size": BATCH, "warm_up_end": 10, "anneal_end": 20, "fix_geo_end": 2,
-                  "save_freq": 3, "val_freq": 3, "val_mesh_freq": 3, "report_freq": 3},
+                  # no periodic 256³ meshes here: tests/test_torch_runner_mesh.py
+                  # holds the mesh hooks
+                  "save_freq": 3, "val_freq": 3, "val_mesh_freq": 3000, "report_freq": 3},
         "model": {
             "nerf": {"D": 2, "W": 32, "multires": 4, "multires_view": 2, "skips": [0]},
             "udf_network": {"d_out": 33, "d_hidden": 64, "n_layers": 2, "skip_in": [1],
@@ -366,19 +368,21 @@ def test_runner_train_checkpoint_and_jax_import(scene_dir, tmp_path):
 
 def test_cli_surface(monkeypatch):
     """The CLI keeps the JAX package's arguments; modes not ported yet raise,
-    and training asks for a CUDA device instead of falling back."""
+    and training and the mesh modes ask for a CUDA device instead of falling
+    back."""
     from neuraludf_tpu import cli as jcli
     from neuraludf_tpu_torch import cli as tcli
 
     jargs = {a.dest for a in jcli.build_parser()._actions}
     assert jargs == {a.dest for a in tcli.build_parser()._actions}
-    for mode in ("validate_mesh", "extract_udf_mesh", "validate_image", "save_hdf5"):
+    for mode in ("validate_image", "save_hdf5", "vis_one_ray"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcli.main(["--mode", mode])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["--mode", "train", "--vis_ray"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tcli.main(["--mode", "train", "--case", "sphere",
-                   "--conf", os.path.join(os.path.dirname(__file__), "..", "confs",
-                                          "synthetic_smoke.conf")])
+    for mode in ("train", "validate_mesh", "extract_udf_mesh", "validate_fields"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcli.main(["--mode", mode, "--case", "sphere",
+                       "--conf", os.path.join(os.path.dirname(__file__), "..", "confs",
+                                              "synthetic_smoke.conf")])
