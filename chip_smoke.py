@@ -41,8 +41,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
     fill and the host-clock time of each stage; ``validate_mesh`` at 256³;
     an incremental extraction at 256³ against its full fill; the Chamfer
     distance of the 512³ mesh to the sphere's surface (a record, no bound);
-11. CUDA-event times of K1, K2, K3, their plain versions and K3's library
-    call; the host-clock time and the profile of a steady step of each path.
+11. ``[validate]`` on the stage-1 runner's field: K1 at a validation
+    chunk's 466,944 points (forward, both tiers) against its plain versions;
+    one 4,096-ray chunk of view 5, pixel-blended, through the kernels (K1 at
+    each tier, K3) against the plain path, and K3 at that chunk's own
+    positions [8, 16384, 8] against its plain version and F.grid_sample; the
+    main path ``Runner.validate`` at resolution level 4 (30,000 rays, one
+    window of 8 chunks: K1 and K3 must launch once a chunk, K2 never), its
+    PSNR, written images and peak memory; the CLI's
+    ``validate_image`` at level 1 (per view 480,000 rays in 120 chunks,
+    timed); ``validate_novel_image``, ``visualize_one_ray`` and ``save_hdf5``
+    once each; 50 more training steps with ``val_freq`` 50, which must write
+    their validation image;
+12. CUDA-event times of K1, K2, K3, their plain versions and K3's library
+    call, at the training shapes and at the validation chunk's; the profile
+    of one validation chunk; the host-clock time and the profile of a
+    steady step of each path.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -123,6 +137,30 @@ MESH_RES, MESH_CHECK_RES, MESH_PARITY_RES = 512, 256, 64
 # normals absolute where both are nonzero, and the band (udf < 2 voxel) may
 # differ only within 1e-6 of its edge.
 TOL_GRID = {"udf": 1e-5, "normals": 1e-4, "band_edge": 1e-6}
+# The validation phase. A validation chunk is batch_size x 8 = 4,096 rays,
+# so K1 sees 4,096 x 114 points (forward only); with more than 8 views the
+# render is pixel-blended and K3 samples 8 views at 4,096 rays x 4 chunks of
+# 8 samples, one pixel position each.
+N_VAL_POINTS = 4096 * 114
+K3_VAL_SHAPE = (8, 4096 * 4, 8)
+VAL_IDX = 5  # the view of the chunk checks and of Runner.validate
+VAL_FREQ = 50  # the short training run that crosses val_freq
+# A 4,096-ray chunk through the kernels against the plain path (fused_core
+# off, strip_sample_plain), same parameters and draws: (max, mean) of
+# |kernel - plain| per output. Tier "highest": K1 is the plain version's f32
+# arithmetic summed in another order (~2e-6 relative, PERF.md §6), and the
+# render downstream is the same code; only the pixel colour may differ more,
+# where the top-32 pick of the blend flips between two near-equal weights.
+# Tier "default": K1's bf16 operands move udf and its gradient by up to
+# ~1.3e-2 of their range (PERF.md §6), the alphas and normals with them: a
+# render of a slightly different field. Its worst pixel is held at about 3x
+# the worst error read on the card (colour 7.2e-3, pixel colour 1.1e-2,
+# normal 3.8e-2, depth 3.0e-2; PERF.md §6), its mean at about 20x. A wrong
+# layout or permutation moves every pixel by ~0.1 or more.
+TOL_VAL = {"highest": {"color": (1e-3, 1e-5), "color_pixel": (5e-2, 1e-4),
+                       "normal": (1e-3, 1e-5), "depth": (1e-3, 1e-5)},
+           "default": {"color": (2.5e-2, 5e-3), "color_pixel": (3.5e-2, 1e-2),
+                       "normal": (1.2e-1, 1e-2), "depth": (1e-1, 1e-2)}}
 # Chamfer of the 512³ mesh to 200,000 points of the sphere, unit scale: the
 # mesh sampled every 0.002 (half a 512³ voxel), distances over 0.1 dropped,
 # precision and recall at 0.005 and 0.01.
@@ -186,9 +224,10 @@ def kernel_flops(ucfg, n: int) -> dict:
     return {"K1": 2.0 * n * k1, "K2": 2.0 * n * k2}
 
 
-def check_kernels(ucfg, dev, n_points: int = N_POINTS):
-    """K1 and K2 against both plain versions, each tier, with the head of
-    ucfg.udf_type; returns the errors and the inputs."""
+def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
+    """K1 and K2 (K1 alone without ``backward``) against both plain
+    versions, each tier, with the head of ucfg.udf_type; returns the errors
+    and the inputs."""
     from neuraludf_tpu_torch.nets import fields
     from neuraludf_tpu_torch.ops import fused_distance as fd
 
@@ -206,14 +245,20 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS):
     gbar = torch.randn((n_points, 3), generator=gen).to(dev)
 
     # the autograd plain version, in f32 (TF32 is off)
-    xg = x.clone().requires_grad_(True)
-    wg = [w.detach().clone().requires_grad_(True) for w in ws]
-    bg = [b.detach().clone().requires_grad_(True) for b in bs]
-    ref_out = fd.plain_autograd(xg, wg, bg, ucfg)
-    ref_grads = torch.autograd.grad(ref_out, [xg] + wg + bg, grad_outputs=(ubar, fbar, gbar))
     flat = lambda ts: torch.cat([t.reshape(-1) for t in ts])
-    ref_bwd = (ref_grads[0], flat(ref_grads[1:1 + len(ws)]), flat(ref_grads[1 + len(ws):]))
-    ref_out = tuple(t.detach() for t in ref_out)
+    ref_bwd = None
+    if backward:
+        xg = x.clone().requires_grad_(True)
+        wg = [w.detach().clone().requires_grad_(True) for w in ws]
+        bg = [b.detach().clone().requires_grad_(True) for b in bs]
+        ref_out = fd.plain_autograd(xg, wg, bg, ucfg)
+        ref_grads = torch.autograd.grad(ref_out, [xg] + wg + bg,
+                                        grad_outputs=(ubar, fbar, gbar))
+        ref_bwd = (ref_grads[0], flat(ref_grads[1:1 + len(ws)]), flat(ref_grads[1 + len(ws):]))
+        ref_out = tuple(t.detach() for t in ref_out)
+    else:  # the forward alone: no graph outlives the gradient
+        with torch.no_grad():
+            ref_out = fd.plain_autograd(x, list(ws), list(bs), ucfg)
 
     def true_layout(bwd):
         """(x̄, W̄, b̄) with the padding dropped: the padded columns' outputs
@@ -226,20 +271,25 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS):
     for tier in ("highest", "default"):
         k_fwd = fd.fused_forward(x, wflat, bflat, lay, tier)
         torch.cuda.synchronize()
-        raw_bwd = fd.fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
-        torch.cuda.synchronize()
-        again = fd.fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
-        if not all(torch.equal(a, b) for a, b in zip(raw_bwd, again)):
-            raise AssertionError(f"K2 ({tier}) is not bit-reproducible from run to run")
-        k_bwd = true_layout(raw_bwd)
+        k_bwd = e_bwd = None
+        if backward:
+            raw_bwd = fd.fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
+            torch.cuda.synchronize()
+            again = fd.fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
+            if not all(torch.equal(a, b) for a, b in zip(raw_bwd, again)):
+                raise AssertionError(f"K2 ({tier}) is not bit-reproducible from run to run")
+            k_bwd = true_layout(raw_bwd)
         with torch.no_grad():
             e_fwd = fd.explicit_forward(x, wflat, bflat, lay, tier)
-            e_bwd = true_layout(fd.explicit_backward(x, wflat, bflat, lay, tier,
-                                                     ubar, fbar, gbar))
+            if backward:
+                e_bwd = true_layout(fd.explicit_backward(x, wflat, bflat, lay, tier,
+                                                         ubar, fbar, gbar))
         for ref_name, rf, rb in (("explicit", e_fwd, e_bwd), ("autograd", ref_out, ref_bwd)):
             tol = TOL[(tier, ref_name)]
             for kname, outs, refs, names in (("K1", k_fwd, rf, names_fwd),
                                               ("K2", k_bwd, rb, names_bwd)):
+                if outs is None:
+                    continue
                 for name, a, b in zip(names, outs, refs):
                     err, rel = rel_err(a, b)
                     errors[(kname, tier, ref_name, name)] = (err, rel)
@@ -327,11 +377,16 @@ def library_sample(images, gx, gy):
 
 
 def check_strip_sample(scene, dev):
+    """K3 at the finetune's shape on seeded positions."""
+    return check_strip_sample_at(*k3_inputs(scene, dev), both_sides=True)
+
+
+def check_strip_sample_at(images, gx, gy, both_sides: bool):
     """K3 against its plain version and the library call; returns the
-    errors and the inputs."""
+    errors and the inputs. ``both_sides``: the positions must fall both in
+    and out of the image."""
     from neuraludf_tpu_torch.ops import strip_sample as ss
 
-    images, gx, gy = k3_inputs(scene, dev)
     colors, mask = ss.strip_sample(images, gx, gy)
     torch.cuda.synchronize()
     ref, ref_mask = ss.strip_sample_plain(images, gx, gy)
@@ -355,8 +410,10 @@ def check_strip_sample(scene, dev):
         raise AssertionError(f"K3 outside tolerance: {errors}")
     if errors["plain_everywhere"] > TOL_K3["plain"]:
         raise AssertionError("K3 differs from the plain version where the mask is false")
-    if not 0.2 < share < 1.0:
+    if both_sides and not 0.2 < share < 1.0:
         raise AssertionError(f"K3 check: in-image share {share}, both sides must be hit")
+    if share == 0.0:
+        raise AssertionError("K3 check: no position lies in its image")
     return errors, dict(images=images, gx=gx, gy=gy)
 
 
@@ -606,6 +663,277 @@ def check_mesh(runner, card):
     return out
 
 
+def validation_chunk(runner):
+    """4,096 rays across the middle rows of view VAL_IDX at full resolution:
+    the sphere and the background."""
+    rays_o, rays_d = runner.dataset.gen_rays_at(VAL_IDX, 1)
+    bs = runner.cfg.train.batch_size * 8
+    mid = rays_o.shape[0] * rays_o.shape[1] // 2
+    rows = slice(mid - bs // 2, mid + bs // 2)
+    return rays_o.reshape(-1, 3)[rows], rays_d.reshape(-1, 3)[rows]
+
+
+def render_chunk_with(runner, model_cfg, sampler, rays):
+    """Runner.render_chunk of ``rays`` with the renderer of ``model_cfg``
+    and ``sampler`` as the warp sampler, on the runner's generator state
+    (restored afterwards, so every variant gets the same draws)."""
+    from neuraludf_tpu_torch.render import renderer as renderer_mod
+    from neuraludf_tpu_torch.train import schedules
+
+    kernel_entry, renderer, state = (renderer_mod.strip_sample, runner.renderer,
+                                     runner.generator.get_state())
+    renderer_mod.strip_sample = sampler
+    runner.renderer = renderer_mod.UDFRenderer(model_cfg)
+    try:
+        ret = runner.render_chunk(*rays, VAL_IDX, pixel_blending=True,
+                                  cos_anneal=schedules.cos_anneal_ratio(runner.iter_step,
+                                                                        runner.cfg.train))
+        return runner.image_rows(ret)
+    finally:
+        renderer_mod.strip_sample, runner.renderer = kernel_entry, renderer
+        runner.generator.set_state(state)
+
+
+def check_validation_chunk(runner):
+    """One 4,096-ray validation chunk through the kernels (each tier of K1,
+    K3) against the plain path; K3 alone at the chunk's own positions
+    against its plain version and F.grid_sample. Returns K3's errors and
+    inputs."""
+    from neuraludf_tpu_torch.ops import strip_sample as ss
+
+    mcfg = runner.cfg.model
+    rays = validation_chunk(runner)
+    variant = lambda **kw: dataclasses.replace(
+        mcfg, udf_network=dataclasses.replace(mcfg.udf_network, **kw))
+    plain = render_chunk_with(runner, variant(fused_core="off"), ss.strip_sample_plain, rays)
+    recorded = []
+
+    def recording(images, gx, gy):
+        recorded.append((images, gx, gy))
+        return ss.strip_sample(images, gx, gy)
+
+    names = {"color": slice(0, 3), "color_pixel": slice(3, 6), "normal": slice(6, 9),
+             "depth": slice(9, 10)}
+    for tier in ("highest", "default"):
+        before = ss.strip_sample.launches
+        out = render_chunk_with(runner, variant(fused_core="on", fused_precision=tier),
+                                recording, rays)
+        if ss.strip_sample.launches - before != 1:
+            raise AssertionError("the validation chunk did not launch K3 once")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"the validation chunk ({tier}) has a non-finite output")
+        for name, cols in names.items():
+            d = (out[:, cols] - plain[:, cols]).abs()
+            worst, mean = float(d.max()), float(d.mean())
+            tol_max, tol_mean = TOL_VAL[tier][name]
+            log(f"  chunk {tier:8s} {name:11s} max_abs_err={worst:.3e} (tol {tol_max:.0e}) "
+                f"mean={mean:.3e} (tol {tol_mean:.0e})")
+            if worst > tol_max or mean > tol_mean:
+                raise AssertionError(f"the validation chunk ({tier}) disagrees with the plain "
+                                     f"path in {name}")
+    if float(plain[:, 3:6].abs().max()) == 0.0:
+        raise AssertionError("the validation chunk rendered no pixel-blended colour")
+
+    images, gx, gy = recorded[-1]
+    if tuple(gx.shape) != K3_VAL_SHAPE:
+        raise AssertionError(f"K3 at the validation chunk: positions {tuple(gx.shape)}, "
+                             f"expected {K3_VAL_SHAPE}")
+    log(f"[kernels] K3 at the validation chunk's own positions {K3_VAL_SHAPE}")
+    return check_strip_sample_at(images, gx, gy, both_sides=False)
+
+
+def check_png(path, shape):
+    """The PNG exists, decodes, and has the expected shape."""
+    from neuraludf_tpu_torch.data.png import read_png
+
+    img = read_png(str(path))
+    if img.shape != shape:
+        raise AssertionError(f"{path}: shape {img.shape}, expected {shape}")
+
+
+def check_validate(runner, cfg, exp_dir, counters, card):
+    """[validate] on the stage-1 runner: the kernels at the validation
+    shapes, Runner.validate at level 4 as the main path (launch counts equal
+    to the chunk count), the CLI's validate_image at level 1, a novel view,
+    the ray statistics, the HDF5 dump, and a short training run across
+    val_freq. Returns the numbers for the kernels line and PERF.md."""
+    import numpy as np
+
+    from neuraludf_tpu_torch import cli
+    from neuraludf_tpu_torch.mesh import grid as mesh_grid
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    out = {}
+    log(f"[kernels] K1 at N={N_VAL_POINTS} (a validation chunk), forward only")
+    out["k1_errors"], out["k1_inputs"] = check_kernels(runner.cfg.model.udf_network, runner.device,
+                                                       N_VAL_POINTS, backward=False)
+    log("[validate] a 4,096-ray chunk through the kernels against the plain path")
+    out["k3_errors"], out["k3_inputs"] = check_validation_chunk(runner)
+
+    # the main path: one validation render at level 4
+    exp_root = exp_dir / cfg.general.expname
+    h, w = runner.dataset.H // 4, runner.dataset.W // 4
+    bs = runner.cfg.train.batch_size * 8
+    n_chunks = -(-h * w // bs)
+    rendered = []
+    render_rays = runner.render_rays
+    runner.render_rays = lambda *a, **k: rendered.append(render_rays(*a, **k)) or rendered[-1]
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.time()
+    try:
+        runner.validate(VAL_IDX, resolution_level=4)
+    finally:
+        del runner.render_rays
+    torch.cuda.synchronize()
+    out["validate_s"] = time.time() - t0
+    out["validate_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    launches = {name: k.launches for name, k in counters.items()}
+    out["launches"] = launches
+    (img,) = rendered
+    log(f"[validate] Runner.validate(level 4): {h * w} rays, {n_chunks} chunks in "
+        f"{out['validate_s']:.2f} s; launches {launches}; peak device memory "
+        f"{out['validate_peak_gib']:.2f} GiB above the resident {held / 2**30:.2f} GiB  [{card}]")
+    if launches != {"K1": n_chunks, "K2": 0, "K3": n_chunks}:
+        raise AssertionError(f"validate: launches {launches}, expected K1 = K3 = {n_chunks}")
+    if img.shape != (h * w, 10) or not np.isfinite(img).all():
+        raise AssertionError("validate rendered a non-finite image or one of the wrong shape")
+    gt = runner.dataset.image_at(VAL_IDX, 4).reshape(-1, 3) / 256.0
+    psnr = {k: float(-10 * np.log10(np.mean((img[:, cols] - gt) ** 2)))
+            for k, cols in (("color", slice(0, 3)), ("color_pixel", slice(3, 6)))}
+    out["validate_psnr"] = psnr
+    log(f"[validate] PSNR against the ground truth: colour {psnr['color']:.2f} dB, pixel-blended "
+        f"{psnr['color_pixel']:.2f} dB after {runner.iter_step} steps")
+    name = f"{runner.iter_step:0>8d}_{VAL_IDX}.png"
+    check_png(exp_root / "validations_fine" / name, (3 * h, w, 3))
+    check_png(exp_root / "normals" / name, (h, w, 3))
+    check_png(exp_root / "depth" / name, (h, w, 3))
+
+    # the CLI's validate_image at level 1, from the stage-1 checkpoint
+    conf = BUILD / "smoke_validate.conf"
+    conf.write_text(CONF.read_text()
+                    .replace("./exp/udf/synthetic/CASE_NAME/", str(exp_dir) + "/")
+                    .replace("./data/synthetic/CASE_NAME/", str(runner.dataset.data_dir) + "/"))
+    times = []
+    validate = Runner.validate
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.time()
+        validate(self, *a, **k)
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+
+    Runner.validate = timed
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.time()
+    try:
+        cli.main(["--mode", "validate_image", "--conf", str(conf), "--case", "sphere",
+                  "--is_continue"])
+    finally:
+        Runner.validate = validate
+    out["cli_s"] = time.time() - t0
+    n_img = len(range(0, min(80, runner.dataset.n_images), 10))
+    rays = runner.dataset.H * runner.dataset.W
+    per_window = min(8, -(-rays // bs))  # Runner.render_rays: windows of up to 8 chunks
+    chunks = n_img * -(-rays // (bs * per_window)) * per_window
+    out["validate_image"] = {"images": n_img, "rays": rays, "s": times,
+                             "rays_per_s": [rays / t for t in times]}
+    launches = out["cli_launches"] = {name: k.launches for name, k in counters.items()}
+    log(f"[validate] CLI validate_image (level 1, {n_img} views of {rays} rays, {chunks} chunks): "
+        f"{out['cli_s']:.1f} s in all; per view " + ", ".join(
+            f"{t:.2f} s = {rays / t:.0f} rays/s" for t in times) + f"; launches {launches}  [{card}]")
+    if launches != {"K1": chunks, "K2": 0, "K3": chunks} or len(times) != n_img:
+        raise AssertionError(f"validate_image: launches {launches}, expected K1 = K3 = {chunks}")
+    for i in range(0, n_img * 10, 10):
+        check_png(exp_root / "novel_view" / f"pred_{i}.png",
+                  (runner.dataset.H, runner.dataset.W, 3))
+
+    # the other modes, once each
+    t0 = time.time()
+    path = runner.validate_novel_image(0, 1, 0.5, out_idx=0, resolution_level=4)
+    check_png(path, (h, w, 3))
+    fig = Path(runner.visualize_one_ray(VAL_IDX, runner.dataset.W // 2, runner.dataset.H // 2))
+    check_png(fig, (4200, 1000, 3))
+    stats = np.load(fig.with_suffix(".npy"), allow_pickle=True).item()
+    if sorted(stats) != ["cos", "udf", "z_vals"] or not all(
+            np.isfinite(v).all() for v in stats.values()):
+        raise AssertionError("visualize_one_ray wrote a malformed .npy")
+    res = 128
+    path = Path(runner.save_hdf5(resolution=res))
+    u = mesh_grid.extract_fields(runner.params, runner.cfg.model.udf_network, *runner._bbox(),
+                                 res + 1)
+    data = np.frombuffer(path.read_bytes()[-u.nbytes:], dtype="<f4").reshape(u.shape)
+    if not np.allclose(data, u / u.max() * 0.5, rtol=0, atol=1e-6):
+        raise AssertionError("save_hdf5 wrote other values than the grid's")
+    out["other_modes_s"] = time.time() - t0
+    log(f"[validate] validate_novel_image, visualize_one_ray and save_hdf5 ({res + 1}³, "
+        f"{path.stat().st_size} bytes) in {out['other_modes_s']:.1f} s")
+
+    # a short training run across val_freq writes its validation image
+    runner.cfg = dataclasses.replace(runner.cfg, train=dataclasses.replace(
+        runner.cfg.train, val_freq=VAL_FREQ))
+    runner.end_iter = runner.iter_step + VAL_FREQ
+    runner.train()
+    written = sorted((exp_root / "validations_fine").glob(f"{runner.iter_step:0>8d}_*.png"))
+    log(f"[validate] training to {runner.iter_step} with val_freq {VAL_FREQ} wrote "
+        f"{[p.name for p in written]}")
+    if len(written) != 1:
+        raise AssertionError("the training run across val_freq wrote no validation image")
+    return out
+
+
+def profile_chunk(runner) -> None:
+    """Kernel launches and device-busy share of one validation chunk
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuraludf_tpu_torch.train import schedules
+
+    rays = validation_chunk(runner)
+    run = lambda: runner.image_rows(runner.render_chunk(
+        *rays, VAL_IDX, pixel_blending=True,
+        cos_anneal=schedules.cos_anneal_ratio(runner.iter_step, runner.cfg.train))).cpu()
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    if busy == 0:
+        log("[profile] the profiler saw no device time in a chunk: not measured")
+        return
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[profile] one validation chunk (4,096 rays): {launches} kernel launches, device busy "
+        f"{busy:.2f} ms of {wall_ms:.2f} ms wall (busy share {busy / wall_ms:.2f}, under the "
+        f"profiler); largest: " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.2f} ms {e.key[:40]}" for e in top))
+
+
+def texels_read(images, gx, gy) -> int:
+    """Distinct texels of each view that the bilinear corners of these
+    positions touch (clamped and NaN positions as K3 takes them): the image
+    bytes K3 must read are these, not the whole views."""
+    v, _, h, w = images.shape
+    x = torch.nan_to_num(gx, nan=0.0).clamp(0.0, w - 1.0).floor().long()
+    y = torch.nan_to_num(gy, nan=0.0).clamp(0.0, h - 1.0).floor().long()
+    base = (torch.arange(v, device=gx.device) * (h * w)).view(v, 1, 1)
+    hit = torch.zeros(v * h * w, dtype=torch.bool, device=gx.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            hit[(base + (y + dy).clamp(max=h - 1) * w + (x + dx).clamp(max=w - 1)).view(-1)] = True
+    return int(hit.sum())
+
+
 def time_strip_sample(k3in, card):
     """CUDA-event times of K3, its plain version and the library call, and
     the bytes and operations K3 must move and do on these inputs."""
@@ -613,7 +941,9 @@ def time_strip_sample(k3in, card):
 
     images, gx, gy = k3in["images"], k3in["gx"], k3in["gy"]
     n = gx.numel()
-    nbytes = images.numel() * 4 + 2 * n * 4 + 3 * n * 4 + n  # images, gx, gy; colours, mask
+    texels = texels_read(images, gx, gy)
+    # the texels touched, 3 channels each; gx, gy; colours, mask
+    nbytes = texels * images.shape[1] * 4 + 2 * n * 4 + 3 * n * 4 + n
     flops = K3_FLOPS_PER_POSITION * n
     with torch.no_grad():
         times = {"K3": cuda_ms(lambda: ss.strip_sample(images, gx, gy)),
@@ -622,36 +952,38 @@ def time_strip_sample(k3in, card):
     log(f"[time] K3 kernel {times['K3']:.3f} ms  plain {times['K3plain']:.3f} ms  library "
         f"(F.grid_sample) {times['K3library']:.3f} ms  bound "
         f"{bound_ms(nbytes, flops, 'highest'):.4f} ms ({nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP f32) at {n} positions  [{card}]")
+        f"{flops / 1e9:.2f} GFLOP f32) at {n} positions, {texels} texels of "
+        f"{images.shape[0] * images.shape[2] * images.shape[3]} read  [{card}]")
     return times, nbytes, flops
 
 
-def time_kernels(ucfg, kin, card):
-    """CUDA-event times of K1, K2 and their explicit plain versions, both
-    tiers, at the main path's shapes; with the work each must do."""
+def time_kernels(ucfg, kin, card, backward: bool = True):
+    """CUDA-event times of K1, K2 (K1 alone without ``backward``) and their
+    explicit plain versions, both tiers, at the points of ``kin``; with the
+    work each must do."""
     from neuraludf_tpu_torch.ops import fused_distance as fd
 
     x, wflat, bflat, lay = kin["x"], kin["wflat"], kin["bflat"], kin["lay"]
     ub, fb, gb = kin["ubar"], kin["fbar"], kin["gbar"]
-    flops = kernel_flops(ucfg, N_POINTS)
+    n = x.shape[0]
+    flops = kernel_flops(ucfg, n)
     n_w = kin["n_weights"] * 4  # the true (unpadded) weights and biases
-    nbytes = {"K1": x.numel() * 4 + n_w + N_POINTS * (ucfg.d_out + 3) * 4,
+    nbytes = {"K1": x.numel() * 4 + n_w + n * (ucfg.d_out + 3) * 4,
               "K2": (x.numel() + ub.numel() + fb.numel() + gb.numel()) * 4 + n_w
               + x.numel() * 4 + n_w}
+    calls = {"K1": lambda tier: fd.fused_forward(x, wflat, bflat, lay, tier),
+             "K2": lambda tier: fd.fused_backward(x, wflat, bflat, lay, tier, ub, fb, gb)}
+    plain = {"K1": lambda tier: fd.explicit_forward(x, wflat, bflat, lay, tier),
+             "K2": lambda tier: fd.explicit_backward(x, wflat, bflat, lay, tier, ub, fb, gb)}
+    names = ("K1", "K2") if backward else ("K1",)
     times = {}
     with torch.no_grad():
         for tier in ("default", "highest"):
-            times[("K1", tier)] = cuda_ms(lambda: fd.fused_forward(x, wflat, bflat, lay, tier))
-            times[("K2", tier)] = cuda_ms(
-                lambda: fd.fused_backward(x, wflat, bflat, lay, tier, ub, fb, gb))
-            times[("K1plain", tier)] = cuda_ms(
-                lambda: fd.explicit_forward(x, wflat, bflat, lay, tier), 3)
-            times[("K2plain", tier)] = cuda_ms(
-                lambda: fd.explicit_backward(x, wflat, bflat, lay, tier, ub, fb, gb), 3)
-    calls = {"K1": lambda tier: fd.fused_forward(x, wflat, bflat, lay, tier),
-             "K2": lambda tier: fd.fused_backward(x, wflat, bflat, lay, tier, ub, fb, gb)}
+            for k in names:
+                times[(k, tier)] = cuda_ms(lambda: calls[k](tier))
+                times[(k + "plain", tier)] = cuda_ms(lambda: plain[k](tier), 3)
     for tier in ("default", "highest"):
-        for k in ("K1", "K2"):
+        for k in names:
             bound = bound_ms(nbytes[k], flops[k], tier)
             times[(k + "launches", tier)] = cuda_launches(lambda: calls[k](tier))
             torch.cuda.reset_peak_memory_stats()
@@ -659,7 +991,7 @@ def time_kernels(ucfg, kin, card):
             calls[k](tier)
             torch.cuda.synchronize()
             mem = (torch.cuda.max_memory_allocated() - held) / 2**20
-            log(f"[time] {k} {tier:8s} kernel {times[(k, tier)]:.3f} ms  plain "
+            log(f"[time] {k} {tier:8s} at N={n}: kernel {times[(k, tier)]:.3f} ms  plain "
                 f"{times[(k + 'plain', tier)]:.3f} ms  bound {bound:.4f} ms "
                 f"({100 * bound / times[(k, tier)]:.1f}% of it reached; "
                 f"{flops[k] / 1e9:.1f} GFLOP, {nbytes[k] / 1e6:.1f} MB)  "
@@ -858,8 +1190,18 @@ def main() -> int:
     check_mesh(runner, card)
     log(f"[mesh] ok in {time.time() - t0:.1f} s")
 
+    t0 = time.time()
+    log(f"[validate] on the stage-1 field ({runner.iter_step} steps)")
+    val = check_validate(runner, cfg, exp_dir, counters, card)
+    log(f"[validate] ok in {time.time() - t0:.1f} s")
+
     times, nbytes, flops = time_kernels(ucfg, kin, card)
     k3_times, k3_bytes, k3_flops = time_strip_sample(k3in, card)
+    k1_val_times, k1_val_bytes, k1_val_flops = time_kernels(ucfg, val["k1_inputs"], card,
+                                                            backward=False)
+    k3_val_times, k3_val_bytes, k3_val_flops = time_strip_sample(val["k3_inputs"], card)
+    # after cuda_launches: a profile taken before it cost that count its launches
+    profile_chunk(runner)
     profiles = []
     for r in (runner, ft_runner):
         time_step(r, card)
@@ -871,6 +1213,12 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
 
     tier = ucfg.fused_precision  # the main paths' tier
+    by_path = lambda k: {"stage1": launches_stage1[k], "finetune": launches_ft[k],
+                         "validate": val["launches"][k],
+                         "validate_image": val["cli_launches"][k]}
+    checked_k12 = [f"{N_POINTS} points ({ucfg.udf_type} head, both tiers)",
+                   f"{N_OTHER_HEADS} points (square and sdf heads)"] + [
+                   f"{n} points (a partly empty tile)" for n in N_RAGGED]
     kernels = []
     for k, name, line in (("K1", "fused_distance_fwd", 226), ("K2", "fused_distance_bwd", 252)):
         outs = ("udf", "feat", "grad") if k == "K1" else ("xbar", "wbar", "bbar")
@@ -878,8 +1226,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "neuraludf_tpu_torch/csrc/fused_distance.cu",
             "replaces": f"neuraludf_tpu/ops/fused_distance.py:{line}",
-            "launches": launches_stage1[k] + launches_ft[k],
-            "launches_by_path": {"stage1": launches_stage1[k], "finetune": launches_ft[k]},
+            "launches": sum(by_path(k).values()),
+            "launches_by_path": by_path(k),
+            "checked_at": checked_k12 + ([f"{N_VAL_POINTS} points (a validation chunk, both "
+                                          f"tiers, forward)"] if k == "K1" else []),
             "max_abs_err": max(errors[(k, tier, "explicit", o)][0] for o in outs),
             "ms": times[(k, tier)], "plain_ms": times[(k + "plain", tier)],
             "cuda_launches_per_call": times[(k + "launches", tier)],
@@ -888,18 +1238,32 @@ def main() -> int:
             else "bytes",
             "library_ms": None,
         })
+    kernels[0]["validation_chunk"] = {
+        "points": N_VAL_POINTS, "launches_per_chunk": 1,
+        "max_abs_err": max(val["k1_errors"][("K1", tier, "explicit", o)][0]
+                           for o in ("udf", "feat", "grad")),
+        **{f"{t}_{key}": value for t in ("default", "highest") for key, value in (
+            ("ms", k1_val_times[("K1", t)]), ("plain_ms", k1_val_times[("K1plain", t)]),
+            ("bound_ms", bound_ms(k1_val_bytes["K1"], k1_val_flops["K1"], t)))}}
     kernels.append({
         "name": "strip_sample", "route": "cuda",
         "source": "neuraludf_tpu_torch/csrc/strip_sample.cu",
         "replaces": "neuraludf_tpu/ops/strip_sample.py:158",
-        "launches": launches_ft["K3"],
-        "launches_by_path": {"stage1": 0, "finetune": launches_ft["K3"]},
+        "launches": sum(by_path("K3").values()),
+        "launches_by_path": by_path("K3"),
+        "checked_at": [f"{list(K3_SHAPE)} seeded positions (finetune shape)",
+                       f"{list(K3_VAL_SHAPE)} a validation chunk's positions"],
         "max_abs_err": k3_errors["plain"],
         "ms": k3_times["K3"], "plain_ms": k3_times["K3plain"],
         "bound_ms": bound_ms(k3_bytes, k3_flops, "highest"),
         "bound_by": "operations" if k3_flops / PEAK_FLOPS["highest"] > k3_bytes / PEAK_BYTES
         else "bytes",
         "library_ms": k3_times["K3library"],
+        "validation_chunk": {
+            "shape": list(K3_VAL_SHAPE), "launches_per_chunk": 1,
+            "max_abs_err": val["k3_errors"]["plain"], "ms": k3_val_times["K3"],
+            "plain_ms": k3_val_times["K3plain"], "library_ms": k3_val_times["K3library"],
+            "bound_ms": bound_ms(k3_val_bytes, k3_val_flops, "highest")},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

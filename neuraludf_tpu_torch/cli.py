@@ -5,25 +5,26 @@
 
 The argument surface is the JAX package's. Every mode runs on
 ``cuda:<--gpu>``. Modes: train (ending in a MeshUDF extraction at
-``--final_mesh_resolution``), validate_mesh, extract_udf_mesh (alias
-validate_udf_mesh) and validate_fields; the rest are not ported yet and
-raise. The extraction modes read the newest checkpoint with
-``--is_continue``.
+``--final_mesh_resolution``; ``--vis_ray`` adds the periodic ray
+statistics, ``--profile_dir`` writes a ``torch.profiler`` trace of the
+training there), validate_mesh, extract_udf_mesh (alias validate_udf_mesh),
+validate_fields, validate_image* (views 0, 10, ..., 70 at resolution level
+1, colour and ground truth to ``novel_view/``), save_hdf5 and vis_one_ray.
+The modes other than train read the newest checkpoint with ``--is_continue``.
+``--multihost`` is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
+import os
 
 log = logging.getLogger(__name__)
 
-MODES = ("train", "validate_mesh", "extract_udf_mesh", "validate_udf_mesh", "validate_fields")
-NOT_PORTED = {
-    "validate_image": "slice 4, item 10",
-    "save_hdf5": "slice 4, item 10",
-    "vis_one_ray": "slice 4, item 10",
-}
+MODES = ("train", "validate_mesh", "extract_udf_mesh", "validate_udf_mesh", "validate_fields",
+         "validate_image", "save_hdf5", "vis_one_ray")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sparse_weight", type=float, default=0)
     p.add_argument("--end_iter", type=int, default=0, help="override train.end_iter")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--profile_dir", type=str, default="", help="not ported yet")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler trace of the training to this directory")
     p.add_argument("--multihost", default=False, action="store_true", help="not ported yet")
     return p
 
@@ -56,17 +58,10 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="[%(filename)s:%(lineno)s - %(funcName)s()] %(message)s")
     args = build_parser().parse_args(argv)
-    if args.mode in NOT_PORTED:
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet "
-                                  f"(ROADMAP: {NOT_PORTED[args.mode]})")
-    if args.mode not in MODES:
+    if args.mode not in MODES and not args.mode.startswith("validate_image"):
         raise SystemExit(f"unknown mode {args.mode}")
-    if args.vis_ray:
-        raise NotImplementedError("--vis_ray is not ported yet (ROADMAP: slice 4, item 10)")
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet (ROADMAP: slice 5, item 11)")
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir is not ported yet (ROADMAP: slice 1, open item 6)")
 
     from . import config as config_mod
     from .train.runner import Runner, default_device
@@ -84,11 +79,14 @@ def main(argv=None):
         overrides["general__model_type"] = args.model_type
     cfg = config_mod.load(args.conf, case=args.case, **overrides)
 
-    runner = Runner(cfg, is_continue=args.is_continue, is_finetune=args.is_finetune,
-                    reg_weights_schedule=args.reg_weights_schedule, seed=args.seed,
-                    device=default_device(args.gpu))
+    runner = Runner(cfg, args.mode, is_continue=args.is_continue, is_finetune=args.is_finetune,
+                    reg_weights_schedule=args.reg_weights_schedule, vis_ray=args.vis_ray,
+                    seed=args.seed, device=default_device(args.gpu))
     if args.mode == "train":
-        runner.train()
+        trace = (profile_trace(args.profile_dir, runner.device) if args.profile_dir
+                 else contextlib.nullcontext())
+        with trace:
+            runner.train()
         runner.extract_udf_mesh(resolution=args.final_mesh_resolution, world_space=True,
                                 dist_threshold_ratio=5.0, algorithm=args.mc_algorithm)
     elif args.mode == "validate_mesh":
@@ -97,8 +95,33 @@ def main(argv=None):
     elif args.mode in ("extract_udf_mesh", "validate_udf_mesh"):
         runner.extract_udf_mesh(resolution=args.resolution, world_space=True,
                                 dist_threshold_ratio=5.0, algorithm=args.mc_algorithm)
-    else:
+    elif args.mode.startswith("validate_image"):
+        for idx in range(0, 80, 10):
+            if idx < runner.dataset.n_images:
+                runner.validate(idx, resolution_level=1, only_color=True)
+    elif args.mode == "validate_fields":
         runner.validate_fields(resolution=args.resolution)
+    elif args.mode == "save_hdf5":
+        runner.save_hdf5(resolution=args.resolution)
+    else:  # vis_one_ray
+        runner.visualize_one_ray(img_idx=min(48, runner.dataset.n_images - 1),
+                                 px=runner.dataset.W // 2, py=runner.dataset.H // 2)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, device):
+    """A ``torch.profiler`` trace of the enclosed work (host and, on a CUDA
+    device, the card), written to ``<log_dir>/trace.json`` in the Chrome
+    trace format when the work ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@
 c2w poses, and each view's nearest neighbours (``ref_src_pairs``).
 ``sample_random_rays`` draws a training batch from one view; its pixel draws
 come from a ``torch.Generator`` or are given as ``px, py``. ``ref_src_info``
-gathers the source views that the blending finetune warps into.
+gathers the source views that the blending finetune warps into. ``rays_at``
+and the ``Dataset.gen_*`` methods make the full-frame, single-pixel and
+in-between-pose rays of the validation renders.
 
 A ray through pixel (x, y) is ``normalize(pose_R @ K^-1 [x, y, 1])`` from
 the camera centre.
@@ -26,6 +28,7 @@ from ..config import DatasetConfig
 from ..ops.interp import grid_sample_2d
 from ..render.projector import build_patch_offset
 from .cameras import decompose_projection
+from .image import resize
 from .png import read_png
 
 Scene = Dict[str, torch.Tensor]
@@ -101,6 +104,20 @@ def sample_random_rays(scene: Scene, img_idx: int, batch_size: int, *,
             "rays_patch_mask": patch_mask}
 
 
+def rays_at(scene: Scene, img_idx: int, resolution_level: int = 1):
+    """Full-image ray grid at a resolution level: (rays_o, rays_v), each
+    [H // level, W // level, 3]."""
+    _, H, W, _ = scene["images"].shape
+    tx, ty = _pixel_grid(H, W, resolution_level, scene["images"].device)
+    return pixels_to_rays(tx, ty, scene["intrinsics_inv"][img_idx], scene["poses"][img_idx])
+
+
+def _pixel_grid(H: int, W: int, level: int, device):
+    tx = torch.linspace(0, W - 1, W // level, device=device)
+    ty = torch.linspace(0, H - 1, H // level, device=device)
+    return torch.meshgrid(tx, ty, indexing="xy")  # [H', W'] each
+
+
 def ref_src_info(scene: Scene, img_idx: int, num: int = 8):
     """Blending inputs of a reference view: its c2w, and the c2ws, intrinsics
     and images [V, 3, H, W] of its ``num`` nearest source views (from
@@ -123,9 +140,7 @@ class Dataset:
         if self.dataset_name == "bmvs":
             raise NotImplementedError("the BlendedMVS JPEG layout needs a JPEG decoder, "
                                       "not ported yet (ROADMAP: slice 1, open item 6)")
-        if conf.downsample_factor != 1.0:
-            raise NotImplementedError("downsample_factor != 1 needs an image resize, "
-                                      "not ported yet (ROADMAP: slice 1, open item 6)")
+        self.downsample_factor = conf.downsample_factor
 
         camera_dict = np.load(os.path.join(self.data_dir, conf.render_cameras_name))
         self.images_lis = sorted(glob(os.path.join(self.data_dir, "image/*.png")))
@@ -146,10 +161,16 @@ class Dataset:
         intrinsics_all, pose_all = [], []
         for scale_mat, world_mat in zip(self.scale_mats_np, self.world_mats_np):
             intrinsics, pose = decompose_projection((world_mat @ scale_mat)[:3, :4])
+            intrinsics[:2] *= self.downsample_factor
             intrinsics_all.append(intrinsics)
             pose_all.append(pose)
         intrinsics_all = np.stack(intrinsics_all)
         pose_all = np.stack(pose_all)
+
+        if self.downsample_factor != 1.0:
+            f = self.downsample_factor
+            self.images_np = np.stack([resize(im, fx=f) for im in self.images_np])
+            self.masks_np = np.stack([resize(m, fx=f) for m in self.masks_np])
 
         self.H, self.W = self.images_np.shape[1], self.images_np.shape[2]
 
@@ -180,3 +201,45 @@ class Dataset:
         centers = pose_all[:, :3, 3]
         d = np.linalg.norm(centers[:, None] - centers[None], axis=-1)
         return np.argsort(d, axis=1)[:, 1:10].astype(np.int32)
+
+    # -- validation rays -------------------------------------------------
+
+    def gen_rays_at(self, img_idx: int, resolution_level: int = 1):
+        return rays_at(self.scene, img_idx, resolution_level)
+
+    def gen_one_ray_at(self, img_idx: int, x: int, y: int) -> torch.Tensor:
+        """One [1, 10] ray row (o, d, rgb, mask) through pixel (x, y)."""
+        color = self.scene["images"][img_idx, y, x][None]
+        mask = (self.scene["masks"][img_idx, y, x] > 0).to(torch.float32)[None]
+        dev = self.scene["images"].device
+        rays_o, rays_v = pixels_to_rays(
+            torch.tensor([float(x)], device=dev), torch.tensor([float(y)], device=dev),
+            self.scene["intrinsics_inv"][img_idx], self.scene["poses"][img_idx])
+        return torch.cat([rays_o, rays_v, color, mask[:, :1]], dim=-1)
+
+    def gen_rays_between(self, idx_0: int, idx_1: int, ratio: float,
+                         resolution_level: int = 1):
+        """Full-image rays from a pose between two views: the rotations
+        slerped, the centres mixed linearly; view 0's intrinsics."""
+        from scipy.spatial.transform import Rotation, Slerp
+
+        poses = self.scene["poses"].cpu().numpy()
+        pose_0, pose_1 = np.linalg.inv(poses[idx_0]), np.linalg.inv(poses[idx_1])
+        rot = Slerp([0, 1], Rotation.from_matrix(np.stack([pose_0[:3, :3], pose_1[:3, :3]])))(
+            ratio)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = rot.as_matrix()
+        pose[:3, 3] = ((1.0 - ratio) * pose_0 + ratio * pose_1)[:3, 3]
+        pose = np.linalg.inv(pose)
+        dev = self.scene["images"].device
+        tx, ty = _pixel_grid(self.H, self.W, resolution_level, dev)
+        return pixels_to_rays(tx, ty, self.scene["intrinsics_inv"][0],
+                              torch.as_tensor(pose, device=dev))
+
+    def near_far_from_sphere(self, rays_o, rays_d):
+        return near_far_from_sphere(rays_o, rays_d)
+
+    def image_at(self, idx: int, resolution_level: int) -> np.ndarray:
+        """The ground-truth image at a resolution level, uint8 BGR."""
+        img = (self.images_np[idx] * 256).astype(np.uint8)
+        return resize(img, (self.W // resolution_level, self.H // resolution_level))

@@ -113,11 +113,16 @@ def distance_gradient(params: Params, x: torch.Tensor, cfg: UDFNetworkConfig) ->
 def distance_value_and_gradient_plain(
     params: Params, x: torch.Tensor, cfg: UDFNetworkConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(value, feature, gradient) by autograd: the plain path."""
+    """(value, feature, gradient) by autograd: the plain path. The gradient
+    is differentiable again when grad mode is on; under ``no_grad`` (the
+    validation renders) no graph outlives the call."""
+    differentiable = torch.is_grad_enabled()
     with torch.enable_grad():
         xg = _grad_input(x)
         out = distance_field_apply(params, xg, cfg)
-        (g,) = torch.autograd.grad(out[:, :1].sum(), xg, create_graph=True)
+        (g,) = torch.autograd.grad(out[:, :1].sum(), xg, create_graph=differentiable)
+    if not differentiable:
+        out = out.detach()
     return out[:, :1], out[:, 1:], g
 
 

@@ -5,12 +5,13 @@ The host computes the schedules, drives the beta/variance trainability
 state machine, logs, and saves checkpoints; each iteration runs eagerly on
 the runner's device. Metrics of a whole window of iterations move to the
 host in one transfer, and every iteration's scalars go to
-``<exp>/logs/metrics.jsonl``. Every ``val_mesh_freq`` iterations the runner
-writes the classic and the MeshUDF mesh of the field (``validate_mesh``,
-``extract_udf_mesh``), their grids filled on the runner's device.
-
-Validation renders are not ported yet (ROADMAP slice 4): ``train`` runs
-without them.
+``<exp>/logs/metrics.jsonl``. Every ``val_freq`` iterations the runner
+renders a validation view (``validate``: colour, pixel-blended colour,
+normals, depth), every ``val_mesh_freq`` iterations it writes the classic
+and the MeshUDF mesh of the field (``validate_mesh``, ``extract_udf_mesh``),
+and with ``vis_ray`` the ray statistics of a column of pixels
+(``visualize_one_ray``). Renders and grids run on the runner's device; a
+validation render moves to the host once per window of up to 8 chunks.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import logging
 import math
 import os
 import pickle
+import shutil
 import time
 from typing import Any, Dict, Optional
 
@@ -29,20 +31,25 @@ import torch
 
 from .. import convert
 from ..config import Config
-from ..data.dataset import Dataset
+from ..data.dataset import Dataset, near_far_from_sphere, ref_src_info
+from ..data.png import write_png
 from ..mesh import grid as mesh_grid
 from ..mesh import mc as mesh_mc
 from ..mesh.meshudf import get_mesh_udf
 from ..mesh.ply import export_ply
 from ..nets import fields
-from ..render.renderer import UDFRenderer
+from ..render.projector import camera_inverse
+from ..render.renderer import RenderOptions, UDFRenderer
+from ..utils.hdf5 import write_dataset
+from ..utils.plot import plot_curves
 from . import schedules as sched_mod
+from .colormap import colorize_depth
 from .optim import init_adam_state
 from .step import METRIC_KEYS, build_step_body
 
 log = logging.getLogger(__name__)
 
-SKIPPED = "validate is not ported yet (ROADMAP: slice 4); training runs without it"
+VAL_WINDOW = 8  # validation chunks per host transfer
 
 
 def init_params(generator: torch.Generator, cfg: Config, device="cpu") -> Dict[str, Any]:
@@ -67,9 +74,11 @@ def default_device(gpu: int = 0) -> torch.device:
 
 
 class Runner:
-    def __init__(self, cfg: Config, *, is_continue: bool = False, is_finetune: bool = False,
-                 reg_weights_schedule: bool = False, seed: int = 0, device=None):
-        """device: cuda:0 unless given (tests pass "cpu")."""
+    def __init__(self, cfg: Config, mode: str = "train", *, is_continue: bool = False,
+                 is_finetune: bool = False, reg_weights_schedule: bool = False,
+                 vis_ray: bool = False, seed: int = 0, device=None):
+        """device: cuda:0 unless given (tests pass "cpu"). A ``mode``
+        starting with "train" snapshots the sources (``file_backup``)."""
         self.device = torch.device(device) if device is not None else default_device()
         # model_type 'neus' trains a signed field with the inside_outside init
         self.model_type = cfg.general.model_type
@@ -81,6 +90,7 @@ class Runner:
         self.cfg = cfg
         self.is_finetune = is_finetune
         self.reg_weights_schedule = reg_weights_schedule
+        self.vis_ray = vis_ray
 
         self.base_exp_dir = os.path.join(cfg.general.base_exp_dir, cfg.general.expname)
         os.makedirs(self.base_exp_dir, exist_ok=True)
@@ -108,7 +118,28 @@ class Runner:
             latest = self._latest_checkpoint()
             if latest is not None:
                 self.load_checkpoint(latest)
-        log.info(SKIPPED)
+        if mode.startswith("train"):
+            self.file_backup()
+
+    def file_backup(self):
+        """Copy the ``.py`` files of each directory in
+        ``cfg.general.recording`` (one level, not recursive) and the
+        configuration's repr into ``<exp>/recording/``."""
+        rec_dir = os.path.join(self.base_exp_dir, "recording")
+        os.makedirs(rec_dir, exist_ok=True)
+        for dir_name in self.cfg.general.recording:
+            if not os.path.isdir(dir_name):
+                continue
+            cur = os.path.join(rec_dir, dir_name)
+            os.makedirs(cur, exist_ok=True)
+            for fname in os.listdir(dir_name):
+                if fname.endswith(".py"):
+                    try:
+                        shutil.copyfile(os.path.join(dir_name, fname), os.path.join(cur, fname))
+                    except OSError:
+                        log.warning("file_backup: could not copy %s/%s", dir_name, fname)
+        with open(os.path.join(rec_dir, "config.txt"), "w") as f:
+            f.write(repr(self.cfg))
 
     # ------------------------------------------------------------------
     # checkpointing
@@ -225,11 +256,27 @@ class Runner:
                 self._periodic_actions(k)
 
     def _periodic_actions(self, k: int):
-        """Saves a checkpoint, and writes the validation meshes, when a
-        multiple of save_freq or val_mesh_freq lies in the last window of k
-        iterations."""
+        """The actions whose frequency has a multiple in the last window of k
+        iterations: the ray statistics (``vis_ray``, every 2 val_mesh_freq),
+        a validation render (val_freq), a checkpoint (save_freq) and the
+        validation meshes (val_mesh_freq). A failed render or mesh is logged
+        and training goes on. The checkpoint follows the render, whose random
+        draws it then holds, so a resumed run continues the same stream."""
         t = self.cfg.train
         hit = lambda freq: freq > 0 and self.iter_step // freq > (self.iter_step - k) // freq
+        if self.vis_ray and hit(t.val_mesh_freq * 2):
+            try:
+                H, W = self.dataset.H, self.dataset.W
+                idx = min(33, self.dataset.n_images - 1)
+                for dy in range(-H // 4, H // 4, max(20, H // 8)):
+                    self.visualize_one_ray(idx, W // 2, H // 2 + dy)
+            except Exception:  # a validation plot must not end the training
+                log.exception("vis_ray failed at iter %d", self.iter_step)
+        if hit(t.val_freq):
+            try:
+                self.validate()
+            except Exception:  # a validation render must not end the training
+                log.exception("validate failed at iter %d", self.iter_step)
         if hit(t.save_freq):
             self.save_checkpoint()
         if hit(t.val_mesh_freq):
@@ -336,3 +383,172 @@ class Runner:
         path = self._out_path("fields", f"{self.iter_step:0>8d}_dist.npy")
         np.save(path, u)
         return path
+
+    def save_hdf5(self, resolution: int = 128) -> str:
+        """The distance grid at (resolution + 1)³ over the object's bounding
+        box, divided by its maximum and halved, as the float32 dataset
+        ``"{resolution}_sdf"`` of ``hdf5/out.hdf5``."""
+        bound_min, bound_max = self._bbox()
+        u = mesh_grid.extract_fields(self.params, self.cfg.model.udf_network,
+                                     bound_min, bound_max, resolution + 1)
+        path = self._out_path("hdf5", "out.hdf5")
+        write_dataset(path, f"{resolution}_sdf", u / u.max() * 0.5)
+        return path
+
+    # ------------------------------------------------------------------
+    # validation renders
+    # ------------------------------------------------------------------
+
+    def render_chunk(self, rays_o: torch.Tensor, rays_d: torch.Tensor, img_idx: int, *,
+                     pixel_blending: bool, cos_anneal: float) -> Dict[str, Any]:
+        """One chunk of rays [B, 3] through the renderer, without gradient.
+        With ``pixel_blending`` the nearest 8 source views of ``img_idx`` are
+        warped in (pixel blending only, as the reference's validation does).
+        Perturbed unless the configuration's ``perturb`` is 0; the draws come
+        from the runner's generator."""
+        near, far = near_far_from_sphere(rays_o, rays_d)
+        blending = None
+        if pixel_blending:
+            ref_c2w, src_c2ws, src_intr, src_images = ref_src_info(self.dataset.scene, img_idx)
+            blending = {"color_maps": src_images, "w2cs": camera_inverse(src_c2ws),
+                        "intrinsics": src_intr, "query_c2w": ref_c2w, "rays_uv": None,
+                        "img_index": None}
+        opts = RenderOptions(perturb=self.cfg.model.udf_renderer.perturb > 0,
+                             pixel_blending=pixel_blending)
+        background = (torch.ones((1, 3), device=rays_o.device)
+                      if self.cfg.train.use_white_bkgd else None)
+        with torch.no_grad():
+            return self.renderer.render(
+                self.params, rays_o, rays_d, near, far, generator=self.generator,
+                cos_anneal_ratio=cos_anneal, flip_saturation=1.0, background_rgb=background,
+                blending=blending, opts=opts)
+
+    @staticmethod
+    def image_rows(ret: Dict[str, Any]) -> torch.Tensor:
+        """A chunk's per-pixel outputs [B, 10]: colour, pixel-blended colour
+        (zeros without blending), the weighted normal inside the unit sphere,
+        depth."""
+        n_fg = ret["gradients_flip"].shape[1]
+        normal = torch.sum(ret["gradients_flip"] * ret["weights"][:, :n_fg, None]
+                           * ret["inside_sphere"][..., None], dim=1)
+        color_pixel = ret["color_pixel"]
+        if color_pixel is None:
+            color_pixel = torch.zeros_like(ret["color"])
+        return torch.cat([ret["color"], color_pixel, normal, ret["depth"]], dim=-1)
+
+    def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor, img_idx: int, *,
+                    pixel_blending: bool, cos_anneal: float) -> np.ndarray:
+        """Rays [N, 3] in chunks of ``batch_size * 8``, windows of up to 8
+        chunks, one host transfer per window: returns [N, 10] (``image_rows``).
+        The last window is padded with zero origins and unit directions."""
+        bs = self.cfg.train.batch_size * 8
+        n = rays_o.shape[0]
+        n_chunks = min(VAL_WINDOW, -(-n // bs))
+        step = bs * n_chunks
+        pad = (-n) % step
+        dev = rays_o.device
+        rays_o = torch.cat([rays_o, torch.zeros((pad, 3), device=dev)])
+        rays_d = torch.cat([rays_d, torch.ones((pad, 3), device=dev)])
+        out = []
+        for i in range(0, n + pad, step):
+            rows = [self.image_rows(self.render_chunk(ro, rd, img_idx,
+                                                      pixel_blending=pixel_blending,
+                                                      cos_anneal=cos_anneal))
+                    for ro, rd in zip(rays_o[i:i + step].split(bs), rays_d[i:i + step].split(bs))]
+            out.append(torch.cat(rows).cpu().numpy())  # one transfer per window
+        return np.concatenate(out)[:n]
+
+    def validate(self, idx: int = -1, resolution_level: int = -1, only_color: bool = False):
+        """Render view ``idx`` (drawn from the runner's generator if < 0) at
+        ``resolution_level`` (the configuration's if < 0). Writes the
+        colour, the pixel-blended colour (more than 8 views) and the ground
+        truth stacked to ``validations_fine/``, the normals in camera space
+        to ``normals/`` and the depth in the plasma map to ``depth/``; with
+        ``only_color`` the colour and the ground truth to ``novel_view/``."""
+        if idx < 0:
+            idx = int(torch.randint(self.dataset.n_images, (1,), generator=self.generator,
+                                    device=self.generator.device))
+        if resolution_level < 0:
+            resolution_level = self.cfg.train.validate_resolution_level
+        rays_o, rays_d = self.dataset.gen_rays_at(idx, resolution_level)
+        H, W, _ = rays_o.shape
+        pixel_blending = self.dataset.n_images > 8
+        out = self.render_rays(rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), idx,
+                               pixel_blending=pixel_blending,
+                               cos_anneal=sched_mod.cos_anneal_ratio(self.iter_step,
+                                                                     self.cfg.train))
+        img_fine = (out[:, 0:3].reshape(H, W, 3) * 256).clip(0, 255)
+        rot = np.linalg.inv(self.dataset.scene["poses"][idx, :3, :3].cpu().numpy())
+        normal_img = ((rot[None] @ out[:, 6:9, None]).reshape(H, W, 3) * 128 + 128).clip(0, 255)
+        pred_depth = out[:, 9].reshape(H, W)
+        gt = self.dataset.image_at(idx, resolution_level)
+        name = f"{self.iter_step:0>8d}_{idx}.png"
+        for sub in ("validations_fine", "normals", "depth"):
+            os.makedirs(os.path.join(self.base_exp_dir, sub), exist_ok=True)
+
+        if only_color:
+            write_png(self._out_path("novel_view", f"pred_{idx}.png"), img_fine.astype(np.uint8))
+            write_png(self._out_path("novel_view", f"gt_{idx}.png"), gt)
+            return
+        rgbs = [img_fine]
+        if pixel_blending:
+            rgbs.append((out[:, 3:6].reshape(H, W, 3) * 256).clip(0, 255))
+        write_png(self._out_path("validations_fine", name),
+                  np.concatenate(rgbs + [gt]).astype(np.uint8))
+        write_png(self._out_path("normals", name), normal_img[:, :, ::-1].astype(np.uint8))
+        write_png(self._out_path("depth", name), colorize_depth(pred_depth)[:, :, ::-1])
+
+    def validate_novel_image(self, idx_0: int, idx_1: int, ratio: float, out_idx: int,
+                             resolution_level: int = 4) -> str:
+        """The colour render from a pose between views idx_0 and idx_1
+        (``Dataset.gen_rays_between``), to ``render/<out_idx>.png``, with
+        cos_anneal 1 and no blending. The float image is rounded to uint8, as
+        ``cv.imwrite`` of a float image does."""
+        rays_o, rays_d = self.dataset.gen_rays_between(idx_0, idx_1, ratio, resolution_level)
+        H, W, _ = rays_o.shape
+        out = self.render_rays(rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), idx_0,
+                               pixel_blending=False, cos_anneal=1.0)
+        img = (out[:, 0:3].reshape(H, W, 3) * 256).clip(0, 255)
+        path = self._out_path("render", f"{out_idx}.png")
+        write_png(path, np.rint(img).astype(np.uint8))
+        return path
+
+    def visualize_one_ray(self, img_idx: int, px: int, py: int) -> str:
+        """Render the ray through pixel (px, py) of view img_idx unperturbed
+        and write, under ``ray_statis/step<iter>/``, its ten sample curves
+        against z - near (udf, |∇udf|, cos(ray, normal), weights, alpha,
+        vis_prob, alpha_plus, alpha_minus, alpha_occ, raw_occ: one panel
+        each, top to bottom) as ``statis_px<px>_py<py>.png`` and
+        ``{"z_vals", "udf", "cos"}`` as the ``.npy`` of the same name."""
+        data = self.dataset.gen_one_ray_at(img_idx, px, py)
+        rays_o, rays_d = data[:, :3], data[:, 3:6]
+        near, far = near_far_from_sphere(rays_o, rays_d)
+        with torch.no_grad():
+            ret = self.renderer.render(
+                self.params, rays_o, rays_d, near, far, generator=self.generator,
+                cos_anneal_ratio=sched_mod.cos_anneal_ratio(self.iter_step, self.cfg.train),
+                flip_saturation=sched_mod.flip_saturation(self.iter_step, self.cfg.train,
+                                                          is_finetune=self.is_finetune),
+                opts=RenderOptions(perturb=False))
+        row = lambda key: ret[key][0].cpu().numpy()
+        z_vals = row("mid_z_vals") - float(near[0, 0])
+        curves = {
+            "udf values": row("udf"),
+            "udf normal magnitude": row("gradient_mag"),
+            "cos(ray, normal)": row("true_cos"),
+            "weights": row("weights")[:z_vals.shape[0]],
+            "alpha": row("alpha"),
+            "vis_prob": row("vis_prob"),
+            "alpha_plus": row("alpha_plus"),
+            "alpha_minus": row("alpha_minus"),
+            "alpha_occ": row("alpha_occ"),
+            "raw_occ": row("raw_occ"),
+        }
+        save_dir = os.path.join(self.base_exp_dir, "ray_statis", f"step{self.iter_step}")
+        os.makedirs(save_dir, exist_ok=True)
+        fig_path = os.path.join(save_dir, f"statis_px{px}_py{py}.png")
+        plot_curves(fig_path, z_vals, curves)
+        np.save(os.path.join(save_dir, f"statis_px{px}_py{py}.npy"),
+                {"z_vals": z_vals, "udf": curves["udf values"],
+                 "cos": curves["cos(ray, normal)"]})
+        return fig_path

@@ -125,6 +125,23 @@ def test_dataset_and_ray_sampling(scenes):
                                rtol=1e-5)
 
 
+def test_downsampled_dataset_matches_jax(scenes):
+    """downsample_factor 0.5: the images and masks resized bilinearly in
+    float64 (atol 1e-6 against OpenCV), the intrinsics scaled with them."""
+    _, tdir = scenes
+    jds = JDataset(JDatasetConfig(data_dir=tdir, dataset_name="general", downsample_factor=0.5))
+    tds = TDataset(TDatasetConfig(data_dir=tdir, dataset_name="general", downsample_factor=0.5),
+                   "cpu")
+    assert (tds.H, tds.W) == (jds.H, jds.W) == (SCENE["H"] // 2, SCENE["W"] // 2)
+    np.testing.assert_allclose(tds.images_np, jds.images_np, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tds.masks_np, jds.masks_np, atol=1e-6, rtol=0)
+    for k in ("images", "masks", "intrinsics", "intrinsics_inv", "poses"):
+        np.testing.assert_allclose(tds.scene[k].numpy(), np.asarray(jds.scene[k]), atol=1e-5,
+                                   err_msg=k)
+    for a, b in zip(jds.gen_rays_at(1, 1), tds.gen_rays_at(1, 1)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("h_patch", [1, 3])
 def test_patch_crop_matches_jax(scenes, h_patch):
     _, tdir = scenes

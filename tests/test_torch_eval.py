@@ -6,6 +6,8 @@ point clouds, the cleaned meshes' bytes. The port dilates masks with
 ``cv2.dilate`` and against a loop over the structuring element."""
 
 import dataclasses
+import os
+import runpy
 
 import cv2
 import numpy as np
@@ -102,6 +104,57 @@ def test_mask_dilation_matches_opencv(size):
     out = tclean.dilate(image, element)
     np.testing.assert_array_equal(out, dilate_reference(image, element))
     np.testing.assert_array_equal(out, cv2.dilate(image, element, iterations=1))
+
+
+def test_eval_dtu_entry_matches_script(tmp_path, capsys, monkeypatch):
+    """``python -m neuraludf_tpu_torch.eval.eval_dtu`` prints the lines and
+    writes the ``eval_result.txt`` of ``scripts/eval_dtu.py``."""
+    from neuraludf_tpu_torch.eval import eval_dtu
+
+    rng = np.random.default_rng(0)
+    verts = rng.random((60, 3)).astype(np.float32)
+    faces = rng.integers(0, 60, (80, 3)).astype(np.int32)
+    gt = (rng.random((500, 3)) * 1.1).astype(np.float32)
+    outs = {}
+    for who in ("scripts", "port"):
+        d = tmp_path / who
+        d.mkdir()
+        export_ply(str(d / "mesh.ply"), verts, faces)
+        export_ply(str(d / "gt.ply"), gt, np.zeros((0, 3), np.int32))
+        argv = ["--data", str(d / "mesh.ply"), "--gt", str(d / "gt.ply"),
+                "--downsample_density", "0.05", "--max_dist", "0.5"]
+        if who == "scripts":
+            script = os.path.join(os.path.dirname(__file__), "..", "scripts", "eval_dtu.py")
+            monkeypatch.setattr("sys.argv", ["eval_dtu.py"] + argv)
+            runpy.run_path(script, run_name="__main__")
+        else:
+            eval_dtu.main(argv)
+        outs[who] = (capsys.readouterr().out, (d / "eval_result.txt").read_text())
+    assert outs["port"] == outs["scripts"]
+    assert outs["port"][0].startswith("over_all: ")
+
+
+def test_clean_dtu_mesh_entry_matches_script(tmp_path, scene_dir, capsys, monkeypatch):
+    """``python -m neuraludf_tpu_torch.eval.clean_dtu_mesh`` writes the
+    meshes of ``scripts/clean_dtu_mesh.py``, byte for byte."""
+    from neuraludf_tpu_torch.eval import clean_dtu_mesh
+
+    mesh = mesh_with_outliers(tmp_path / "m.ply")
+    outs = {}
+    for who in ("scripts", "port"):
+        argv = ["--mesh", mesh, "--data_dir", scene_dir, "--out_dir", str(tmp_path / who),
+                "--scan", "7", "--mask_kernel_size", "5", "--keep_largest"]
+        if who == "scripts":
+            script = os.path.join(os.path.dirname(__file__), "..", "scripts", "clean_dtu_mesh.py")
+            monkeypatch.setattr("sys.argv", ["clean_dtu_mesh.py"] + argv)
+            runpy.run_path(script, run_name="__main__")
+        else:
+            clean_dtu_mesh.main(argv)
+        printed = capsys.readouterr().out.replace(str(tmp_path / who), "<out>")
+        outs[who] = (printed, [(tmp_path / who / f"{k}_007.ply").read_bytes()
+                               for k in ("clean", "visualhull")])
+    assert outs["port"] == outs["scripts"]
+    assert 0 < len(outs["port"][1][1]) < os.path.getsize(mesh)
 
 
 @pytest.mark.parametrize("cleaner", ["clean_mesh_faces_by_mask", "clean_mesh_faces_by_visualhull"])

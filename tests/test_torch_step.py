@@ -367,22 +367,25 @@ def test_runner_train_checkpoint_and_jax_import(scene_dir, tmp_path):
 
 
 def test_cli_surface(monkeypatch):
-    """The CLI keeps the JAX package's arguments; modes not ported yet raise,
-    and training and the mesh modes ask for a CUDA device instead of falling
-    back."""
+    """The CLI keeps the JAX package's arguments and modes; only --multihost
+    is not ported yet and raises; every mode, --vis_ray and --profile_dir
+    included, asks for a CUDA device instead of falling back."""
     from neuraludf_tpu import cli as jcli
     from neuraludf_tpu_torch import cli as tcli
 
     jargs = {a.dest for a in jcli.build_parser()._actions}
     assert jargs == {a.dest for a in tcli.build_parser()._actions}
-    for mode in ("validate_image", "save_hdf5", "vis_one_ray"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcli.main(["--mode", mode])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["--mode", "train", "--vis_ray"])
+        tcli.main(["--mode", "train", "--multihost"])
+    with pytest.raises(SystemExit, match="unknown mode"):
+        tcli.main(["--mode", "render_everything"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for mode in ("train", "validate_mesh", "extract_udf_mesh", "validate_fields"):
+    conf = ["--case", "sphere", "--conf",
+            os.path.join(os.path.dirname(__file__), "..", "confs", "synthetic_smoke.conf")]
+    for args in (["--mode", "train"], ["--mode", "train", "--vis_ray"],
+                 ["--mode", "train", "--profile_dir", "prof"], ["--mode", "validate_mesh"],
+                 ["--mode", "extract_udf_mesh"], ["--mode", "validate_fields"],
+                 ["--mode", "validate_image"], ["--mode", "validate_image_all"],
+                 ["--mode", "save_hdf5"], ["--mode", "vis_one_ray"]):
         with pytest.raises(RuntimeError, match="CUDA"):
-            tcli.main(["--mode", mode, "--case", "sphere",
-                       "--conf", os.path.join(os.path.dirname(__file__), "..", "confs",
-                                              "synthetic_smoke.conf")])
+            tcli.main(args + conf)
