@@ -10,15 +10,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``csrc/strip_sample.cu`` for sm_90a, both nvcc processes started together;
 3. kernels K1 (fused distance forward) and K2 (its second-order backward)
    at the main path's width (58,368 points, the 8x256 net of
-   ``confs/synthetic_smoke.conf``, its ``abs`` head), both tiers, against the
-   explicit plain version and the autograd plain version, and K2 twice on
-   the same inputs for bit-equal W̄ and b̄; then the same for the ``square``
-   and ``sdf`` heads at 4,096 points, and for the ``abs`` head at 5,000
-   points (not a multiple of the 128-row tile) and at 300 (one partly empty
-   tile of K1);
+   ``confs/synthetic_smoke.conf``, its ``abs`` head), each tier ("default",
+   "high", "highest"), against the explicit plain version at the same tier
+   and the autograd plain version, "high" also against "highest", and K2
+   twice on the same inputs for bit-equal W̄ and b̄; then the same for the
+   ``square`` and ``sdf`` heads at 4,096 points, and for the ``abs`` head at
+   5,000 points (not a multiple of the 128-row tile) and at 300 (one partly
+   empty tile of K1);
 4. the synthetic sphere scene (16 views, 600x800) with the port's generator;
 5. one training loss and its gradients on a small batch through the kernels
-   (tier "highest") against the plain autograd path;
+   (tiers "highest" and "high") against the plain autograd path;
 6. the stage-1 main path: ``Runner.train`` on ``confs/synthetic_smoke.conf``
    at full width for a few windows, launch counts of K1 and K2 read around
    it; its last checkpoint is what the finetune starts from;
@@ -34,6 +35,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``confs/udf_dtu_blending_ft.conf`` (``is_finetune``) loads the stage-1
    checkpoint and trains 100 steps at full width; K1, K2 and K3 must each
    launch once a step, the pixel and patch losses must be nonzero;
+9a. ``[high]``: both training paths again at ``fused_precision = "high"``,
+   one window of 50 steps each from the stage-1 checkpoint, at full width,
+   with the same launch counts;
 10. ``[mesh]`` on the stage-1 runner's field (its 200-step state): the
     MeshUDF grid at 64³ on the card against the same on the CPU; the CLI's
     closing extraction (``extract_udf_mesh`` at 512³, world space, distance
@@ -42,7 +46,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
     an incremental extraction at 256³ against its full fill; the Chamfer
     distance of the 512³ mesh to the sphere's surface (a record, no bound);
 11. ``[validate]`` on the stage-1 runner's field: K1 at a validation
-    chunk's 466,944 points (forward, both tiers) against its plain versions;
+    chunk's 466,944 points (forward, each tier) against its plain versions;
     one 4,096-ray chunk of view 5, pixel-blended, through the kernels (K1 at
     each tier, K3) against the plain path, and K3 at that chunk's own
     positions [8, 16384, 8] against its plain version and F.grid_sample; the
@@ -53,8 +57,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     timed); ``validate_novel_image``, ``visualize_one_ray`` and ``save_hdf5``
     once each; 50 more training steps with ``val_freq`` 50, which must write
     their validation image;
-12. CUDA-event times of K1, K2, K3, their plain versions and K3's library
-    call, at the training shapes and at the validation chunk's; the profile
+12. CUDA-event times of K1, K2 (each tier), K3, their plain versions and
+    K3's library call, at the training shapes and at the validation chunk's; the profile
     of one validation chunk; the host-clock time and the profile of a
     steady step of each path.
 
@@ -97,7 +101,8 @@ REPS = 10  # kernel launches per timing
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 CUDA
 # cores, HBM3 bandwidth.
-PEAK_FLOPS = {"default": 989e12, "highest": 67e12}
+PEAK_FLOPS = {"default": 989e12, "high": 989e12, "highest": 67e12}
+TIERS = ("default", "high", "highest")
 PEAK_BYTES = 3.35e12
 
 # Tolerances, as max |kernel - reference| / max |reference| per output.
@@ -108,13 +113,43 @@ PEAK_BYTES = 3.35e12
 # kernels use the fast exp, log and divide) may round to the neighbouring bf16
 # value (2^-8 relative), and the second-order terms amplify that. Against the
 # f32 autograd version, "default" carries bf16's whole error.
+# "high" (bf16x3) against the explicit version at the same tier: both split
+# the same operands at the same places, but the f32 sums run in another
+# order. The forward products split both operands, and a value moved by an
+# ulp to the other side of a bf16 boundary moves its lo the other way: udf
+# and feature agree to ~1e-5. The reverse products cast the cotangent itself
+# to bf16 (JAX's transpose of _dot3), so there an ulp can move a cotangent by
+# 2^-8, sigma(100 a) carries a's ulps 25-fold into the next cotangent, and
+# the flips cascade over the layers: one ulp on x moves the explicit version
+# itself by 2.8e-3 of the range in grad, 2.7e-3 in x̄ (measured on the CPU,
+# 4,096 points of the main-path net), and the kernel lies 3.6e-3 from it in
+# grad, 3.4e-3 in x̄ at 58,368 points and 4.9e-3 in grad at 466,944
+# (measured on the card). Against "highest" (the f32 kernel) and the f32
+# autograd version: the bf16 cotangents' whole error, measured up to 4.4e-3
+# (x̄, square head).
 TOL = {
     ("highest", "explicit"): 1e-4,
     ("highest", "autograd"): 1e-4,
+    ("high", "explicit"): 1.5e-2,
+    ("high", "autograd"): 1.5e-2,
+    ("high", "highest"): 1.5e-2,
     ("default", "explicit"): 2e-2,
     ("default", "autograd"): 1e-1,
 }
+# "high"'s roundings, where they do not cascade: a net of one hidden layer
+# (the 256-wide embedding layer and the head), every output's RMS
+# difference over its RMS. One ulp on x moves the explicit version by at
+# most 5.8e-5 there (measured on the CPU), while "high" and "highest" differ
+# by 8e-4 to 2e-3 in grad, x̄, W̄ and b̄ (the bf16 cotangents): the kernel
+# must be within TOL_HIGH_ROUNDING of the explicit version (measured 2.3e-5
+# at most, W̄), and the "highest" kernel at least 3x that away from it in
+# those four (measured 9.6e-4 at least, grad).
+TOL_HIGH_ROUNDING = 1e-4
 TOL_STEP = 1e-3  # small-batch loss and gradients, kernels ("highest") vs plain
+# the same at "high": its bf16 cotangents move the udf gradients (K2's W̄,
+# b̄), measured 1.7e-2 of a leaf's largest entry (the loss 1.5e-5)
+TOL_STEP_HIGH = 5e-2
+HIGH_STEPS = 50  # one window of each training path at tier "high"
 # K3, max |kernel - reference| over the colours whose mask is true. Against
 # the plain version: the same f32 formula on the same absolute positions;
 # nvcc contracts the four products into FMAs. Against F.grid_sample: it takes
@@ -199,9 +234,12 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_flops(ucfg, n: int) -> dict:
-    """Operations K1 and K2 must do over n points: 2 per multiply-add of
-    their matrix products at the true (unpadded) widths.
+def kernel_flops(ucfg, n: int, tier: str = "default") -> dict:
+    """Operations K1 and K2 must do over n points at ``tier``: 2 per
+    multiply-add of their matrix products at the true (unpadded) widths,
+    times the passes the tier makes of each product. "high" (bf16x3) makes
+    three of an activation or tangent times W, two of a cotangent times W^T
+    and two of the weight cotangent (its cotangent side is one bf16 value).
 
     One pass of the MLP is sum_l d_in * d_out. K1 is the forward pass and
     the gradient sweep; K2 the primal and tangent forward passes, the
@@ -219,8 +257,9 @@ def kernel_flops(ucfg, n: int) -> dict:
     one_col = full - head_in * head_out + head_in  # a pass whose head needs column 0
     no_col = full - head_in * head_out  # a pass whose head is not read
     tangent = one_col if ucfg.udf_type == "square" else no_col
-    k1 = full + one_col
-    k2 = full + tangent + one_col + full + full + one_col
+    fwd, rev, wgt = (3, 2, 2) if tier == "high" else (1, 1, 1)
+    k1 = fwd * full + rev * one_col
+    k2 = fwd * (full + tangent) + rev * (one_col + full) + wgt * (full + one_col)
     return {"K1": 2.0 * n * k1, "K2": 2.0 * n * k2}
 
 
@@ -267,8 +306,8 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
         return bwd[0], flat(ws_bar), flat(bs_bar)
 
     names_fwd, names_bwd = ("udf", "feat", "grad"), ("xbar", "wbar", "bbar")
-    errors = {}
-    for tier in ("highest", "default"):
+    errors, kernel_out = {}, {}
+    for tier in ("highest", "high", "default"):
         k_fwd = fd.fused_forward(x, wflat, bflat, lay, tier)
         torch.cuda.synchronize()
         k_bwd = e_bwd = None
@@ -279,6 +318,7 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
             if not all(torch.equal(a, b) for a, b in zip(raw_bwd, again)):
                 raise AssertionError(f"K2 ({tier}) is not bit-reproducible from run to run")
             k_bwd = true_layout(raw_bwd)
+        kernel_out[tier] = (k_fwd, k_bwd)
         with torch.no_grad():
             e_fwd = fd.explicit_forward(x, wflat, bflat, lay, tier)
             if backward:
@@ -295,6 +335,15 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
                     errors[(kname, tier, ref_name, name)] = (err, rel)
                     log(f"  {kname} {lay.head:6s} {tier:8s} vs {ref_name:8s} {name:5s} "
                         f"max_abs_err={err:.3e} rel={rel:.3e} tol={tol:.0e}")
+    # "high" against the f32 kernel on the same inputs
+    for kname, i, names in (("K1", 0, names_fwd), ("K2", 1, names_bwd)):
+        if kernel_out["high"][i] is None:
+            continue
+        for name, a, b in zip(names, kernel_out["high"][i], kernel_out["highest"][i]):
+            err, rel = rel_err(a, b)
+            errors[(kname, "high", "highest", name)] = (err, rel)
+            log(f"  {kname} {lay.head:6s} high     vs highest  {name:5s} max_abs_err={err:.3e} "
+                f"rel={rel:.3e} tol={TOL[('high', 'highest')]:.0e}")
     bad = [(k, v) for k, v in errors.items() if v[1] > TOL[(k[1], k[2])]]
     if bad:
         raise AssertionError(f"kernel outputs outside tolerance: {bad}")
@@ -303,9 +352,45 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
     return errors, inputs
 
 
+def rms_rel(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+def check_high_rounding(ucfg, dev, n_points: int = N_POINTS):
+    """Tier "high" of K1 and K2 on a net of one hidden layer at full width
+    (where a rounding flip does not cascade) against the explicit version at
+    "high": the kernel rounds what the TPU's _dot3 rounds, where it does."""
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    shallow = dataclasses.replace(ucfg, n_layers=1, skip_in=())
+    _, kin = check_kernels(shallow, dev, n_points)
+    x, wflat, bflat, lay = kin["x"], kin["wflat"], kin["bflat"], kin["lay"]
+    cot = (kin["ubar"], kin["fbar"], kin["gbar"])
+    names = ("udf", "feat", "grad", "xbar", "wbar", "bbar")
+    run = {tier: list(fd.fused_forward(x, wflat, bflat, lay, tier))
+           + list(fd.fused_backward(x, wflat, bflat, lay, tier, *cot)) for tier in ("high", "highest")}
+    with torch.no_grad():
+        ref = list(fd.explicit_forward(x, wflat, bflat, lay, "high")) + list(
+            fd.explicit_backward(x, wflat, bflat, lay, "high", *cot))
+    out = {}
+    for i, name in enumerate(names):
+        out[name] = (rms_rel(run["high"][i], ref[i]), rms_rel(run["highest"][i], ref[i]))
+        log(f"  one hidden layer, N={n_points}: {name:5s} RMS rel. difference to the explicit "
+            f"version at high: kernel high {out[name][0]:.2e} (tol {TOL_HIGH_ROUNDING:.0e}), "
+            f"kernel highest {out[name][1]:.2e}")
+    bad = [n for n, (h, f) in out.items()
+           if h > TOL_HIGH_ROUNDING or (n not in ("udf", "feat") and f < 3 * TOL_HIGH_ROUNDING)]
+    if bad:
+        raise AssertionError(f"tier 'high' does not round as the explicit version does: {bad}")
+    return out
+
+
 def check_small_step(cfg, dataset, dev):
-    """One loss and its gradients on a 64-ray batch: the kernels (tier
-    'highest') against the plain autograd path, same params and draws."""
+    """One loss and its gradients on a 64-ray batch: the kernels (tiers
+    'highest' and 'high') against the plain autograd path, same params and
+    draws."""
+    from neuraludf_tpu_torch.ops import fused_distance as fd
     from neuraludf_tpu_torch.render.renderer import UDFRenderer
     from neuraludf_tpu_torch.train import step as tstep
     from neuraludf_tpu_torch.train.runner import init_params
@@ -314,29 +399,30 @@ def check_small_step(cfg, dataset, dev):
     sched = {"cos_anneal_ratio": 0.5, "flip_saturation": 0.0, "color_base_weight": 0.01,
              "color_weight": 1.0, "color_pixel_weight": 0.0, "color_patch_weight": 0.0,
              "mask_weight": 0.0, "igr_ns_weight": 0.0, "sparse_weight": 0.0, "igr_weight": 0.1}
-    from neuraludf_tpu_torch.ops import fused_distance as fd
-
-    results = []
-    launched = (fd.fused_forward.launches, fd.fused_backward.launches)
-    for core, prec in (("on", "highest"), ("off", "highest")):
+    results = {}
+    for core, prec in (("off", "highest"), ("on", "highest"), ("on", "high")):
         ucfg = dataclasses.replace(cfg.model.udf_network, fused_core=core, fused_precision=prec)
         c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, udf_network=ucfg))
         params = init_params(torch.Generator().manual_seed(1), c, dev)
         loss_fn = tstep.build_loss_fn(c, UDFRenderer(c.model))
         gen = torch.Generator(device=dev).manual_seed(2)
+        launched = (fd.fused_forward.launches, fd.fused_backward.launches)
         total, _ = loss_fn(params, dataset.scene, 3, sched, gen)
         grads = tstep.param_grads(total, params)
-        results.append((total.detach(), grads))
-        if core == "on" and (fd.fused_forward.launches - launched[0] != 1
-                             or fd.fused_backward.launches - launched[1] != 1):
-            raise AssertionError("fused_core='on' did not run K1 and K2 once each")
-    (l_k, g_k), (l_p, g_p) = results
-    err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
-    worst = max(rel_err(g_k[p], g_p[p])[1] for p in g_p if p[0] == "udf")
-    log(f"  loss kernels={float(l_k):.6f} plain={float(l_p):.6f} rel={err:.2e}; "
-        f"udf grads worst rel={worst:.2e} tol={TOL_STEP:.0e}")
-    if not (err <= TOL_STEP and worst <= TOL_STEP):
-        raise AssertionError("the kernels' training loss or gradients disagree with the plain path")
+        results[(core, prec)] = (total.detach(), grads)
+        ran = (fd.fused_forward.launches - launched[0], fd.fused_backward.launches - launched[1])
+        if ran != ((1, 1) if core == "on" else (0, 0)):
+            raise AssertionError(f"fused_core={core!r} ({prec}) launched K1, K2 {ran} times")
+    l_p, g_p = results[("off", "highest")]
+    for prec, tol in (("highest", TOL_STEP), ("high", TOL_STEP_HIGH)):
+        l_k, g_k = results[("on", prec)]
+        err = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+        worst = max(rel_err(g_k[p], g_p[p])[1] for p in g_p if p[0] == "udf")
+        log(f"  loss kernels ({prec})={float(l_k):.6f} plain={float(l_p):.6f} rel={err:.2e}; "
+            f"udf grads worst rel={worst:.2e} tol={tol:.0e}")
+        if not (err <= tol and worst <= tol):
+            raise AssertionError(f"the kernels' training loss or gradients ({prec}) disagree "
+                                 f"with the plain path")
 
 
 def k3_inputs(scene, dev):
@@ -959,14 +1045,14 @@ def time_strip_sample(k3in, card):
 
 def time_kernels(ucfg, kin, card, backward: bool = True):
     """CUDA-event times of K1, K2 (K1 alone without ``backward``) and their
-    explicit plain versions, both tiers, at the points of ``kin``; with the
-    work each must do."""
+    explicit plain versions, every tier, at the points of ``kin``; with the
+    work each must do at each tier."""
     from neuraludf_tpu_torch.ops import fused_distance as fd
 
     x, wflat, bflat, lay = kin["x"], kin["wflat"], kin["bflat"], kin["lay"]
     ub, fb, gb = kin["ubar"], kin["fbar"], kin["gbar"]
     n = x.shape[0]
-    flops = kernel_flops(ucfg, n)
+    flops = {tier: kernel_flops(ucfg, n, tier) for tier in TIERS}
     n_w = kin["n_weights"] * 4  # the true (unpadded) weights and biases
     nbytes = {"K1": x.numel() * 4 + n_w + n * (ucfg.d_out + 3) * 4,
               "K2": (x.numel() + ub.numel() + fb.numel() + gb.numel()) * 4 + n_w
@@ -978,13 +1064,13 @@ def time_kernels(ucfg, kin, card, backward: bool = True):
     names = ("K1", "K2") if backward else ("K1",)
     times = {}
     with torch.no_grad():
-        for tier in ("default", "highest"):
+        for tier in TIERS:
             for k in names:
                 times[(k, tier)] = cuda_ms(lambda: calls[k](tier))
                 times[(k + "plain", tier)] = cuda_ms(lambda: plain[k](tier), 3)
-    for tier in ("default", "highest"):
+    for tier in TIERS:
         for k in names:
-            bound = bound_ms(nbytes[k], flops[k], tier)
+            bound = bound_ms(nbytes[k], flops[tier][k], tier)
             times[(k + "launches", tier)] = cuda_launches(lambda: calls[k](tier))
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
@@ -994,7 +1080,7 @@ def time_kernels(ucfg, kin, card, backward: bool = True):
             log(f"[time] {k} {tier:8s} at N={n}: kernel {times[(k, tier)]:.3f} ms  plain "
                 f"{times[(k + 'plain', tier)]:.3f} ms  bound {bound:.4f} ms "
                 f"({100 * bound / times[(k, tier)]:.1f}% of it reached; "
-                f"{flops[k] / 1e9:.1f} GFLOP, {nbytes[k] / 1e6:.1f} MB)  "
+                f"{flops[tier][k] / 1e9:.1f} GFLOP, {nbytes[k] / 1e6:.1f} MB)  "
                 f"{times[(k + 'launches', tier)]} CUDA launches, {mem:.0f} MiB of outputs and "
                 f"scratch a call  [{card}]")
     return times, nbytes, flops
@@ -1149,6 +1235,8 @@ def main() -> int:
     for n in N_RAGGED:
         log(f"[kernels] K1/K2 at N={n}: a partly empty row tile")
         check_kernels(ucfg, dev, n)
+    log(f"[kernels] tier 'high' on a net of one hidden layer at N={N_POINTS}")
+    high_rounding = check_high_rounding(ucfg, dev)
     log(f"[kernels] ok in {time.time() - t0:.1f} s; K2's outputs bit-equal over two calls")
 
     t0 = time.time()
@@ -1185,6 +1273,30 @@ def main() -> int:
                                            ("K1", "K2", "K3"))
     check_finetune_rows(ft_rows)
 
+    # tier "high" on both training paths: one window each from the stage-1
+    # checkpoint, at full width, into an experiment directory of its own
+    t0 = time.time()
+    high_dir = exp_dir / "high"
+    high = dict(common, general__base_exp_dir=str(high_dir),
+                model__udf_network__fused_precision="high")
+    hi_cfg = config_mod.load(str(CONF), train__end_iter=n_stage1 + HIGH_STEPS,
+                             train__save_freq=n_stage1, **high)
+    hi_runner = Runner(hi_cfg, device=dev, seed=0)
+    hi_runner.load_checkpoint(ckpt)
+    log(f"[high] stage 1 at fused_precision=high from {Path(ckpt).name}")
+    launches_high = {"stage1": train_main_path(hi_runner, hi_cfg, high_dir, counters,
+                                               ("K1", "K2"))[0]}
+    hi_ft_cfg = config_mod.load(str(FT_CONF), train__end_iter=HIGH_STEPS, **FT_SCHEDULE, **high)
+    hi_ft_runner = Runner(hi_ft_cfg, device=dev, seed=1, is_finetune=True)
+    hi_ft_runner.load_checkpoint(ckpt)
+    log("[high] finetune at fused_precision=high")
+    launches_high["finetune"], hi_ft_rows = train_main_path(hi_ft_runner, hi_ft_cfg, high_dir,
+                                                            counters, ("K1", "K2", "K3"))
+    check_finetune_rows(hi_ft_rows)
+    del hi_runner, hi_ft_runner
+    torch.cuda.empty_cache()
+    log(f"[high] ok in {time.time() - t0:.1f} s")
+
     t0 = time.time()
     log(f"[mesh] on the stage-1 field ({runner.iter_step} steps)")
     check_mesh(runner, card)
@@ -1216,7 +1328,7 @@ def main() -> int:
     by_path = lambda k: {"stage1": launches_stage1[k], "finetune": launches_ft[k],
                          "validate": val["launches"][k],
                          "validate_image": val["cli_launches"][k]}
-    checked_k12 = [f"{N_POINTS} points ({ucfg.udf_type} head, both tiers)",
+    checked_k12 = [f"{N_POINTS} points ({ucfg.udf_type} head, every tier)",
                    f"{N_OTHER_HEADS} points (square and sdf heads)"] + [
                    f"{n} points (a partly empty tile)" for n in N_RAGGED]
     kernels = []
@@ -1228,23 +1340,31 @@ def main() -> int:
             "replaces": f"neuraludf_tpu/ops/fused_distance.py:{line}",
             "launches": sum(by_path(k).values()),
             "launches_by_path": by_path(k),
-            "checked_at": checked_k12 + ([f"{N_VAL_POINTS} points (a validation chunk, both "
-                                          f"tiers, forward)"] if k == "K1" else []),
+            "checked_at": checked_k12 + ([f"{N_VAL_POINTS} points (a validation chunk, every "
+                                          f"tier, forward)"] if k == "K1" else []),
             "max_abs_err": max(errors[(k, tier, "explicit", o)][0] for o in outs),
             "ms": times[(k, tier)], "plain_ms": times[(k + "plain", tier)],
             "cuda_launches_per_call": times[(k + "launches", tier)],
-            "bound_ms": bound_ms(nbytes[k], flops[k], tier),
-            "bound_by": "operations" if flops[k] / PEAK_FLOPS[tier] > nbytes[k] / PEAK_BYTES
+            "bound_ms": bound_ms(nbytes[k], flops[tier][k], tier),
+            "bound_by": "operations" if flops[tier][k] / PEAK_FLOPS[tier] > nbytes[k] / PEAK_BYTES
             else "bytes",
             "library_ms": None,
+            # tier "high" (bf16x3): its own windows of the two training paths
+            "high_launches_by_path": {p: launches_high[p][k] for p in launches_high},
+            "high_max_abs_err": max(errors[(k, "high", "explicit", o)][0] for o in outs),
+            "high_max_rel_err_vs_highest": max(errors[(k, "high", "highest", o)][1] for o in outs),
+            "high_rms_rel_err_one_hidden_layer": max(high_rounding[o][0] for o in outs),
+            "high_ms": times[(k, "high")], "high_plain_ms": times[(k + "plain", "high")],
+            "high_cuda_launches_per_call": times[(k + "launches", "high")],
+            "high_bound_ms": bound_ms(nbytes[k], flops["high"][k], "high"),
         })
     kernels[0]["validation_chunk"] = {
         "points": N_VAL_POINTS, "launches_per_chunk": 1,
         "max_abs_err": max(val["k1_errors"][("K1", tier, "explicit", o)][0]
                            for o in ("udf", "feat", "grad")),
-        **{f"{t}_{key}": value for t in ("default", "highest") for key, value in (
+        **{f"{t}_{key}": value for t in TIERS for key, value in (
             ("ms", k1_val_times[("K1", t)]), ("plain_ms", k1_val_times[("K1plain", t)]),
-            ("bound_ms", bound_ms(k1_val_bytes["K1"], k1_val_flops["K1"], t)))}}
+            ("bound_ms", bound_ms(k1_val_bytes["K1"], k1_val_flops[t]["K1"], t)))}}
     kernels.append({
         "name": "strip_sample", "route": "cuda",
         "source": "neuraludf_tpu_torch/csrc/strip_sample.cu",

@@ -107,7 +107,11 @@ class UDFNetworkConfig:
     predict_grad: bool = False  # accepted for conf parity; unused
     # fused render-core kernels (ops/fused_distance.py, csrc/fused_distance.cu)
     fused_core: str = "auto"  # 'auto' (kernel on CUDA, plain on CPU) | 'on' | 'off'
-    fused_precision: str = "default"  # 'default' (bf16 operands) | 'highest' (f32)
+    # 'default': one bf16 pass a product, and sigma(100 a) and q kept in bf16
+    # between the kernels' sweeps; 'high': bf16x3 (the TPU's _dot3), operands
+    # split into bf16 hi and lo, cotangents in bf16, every stored value f32;
+    # 'highest': f32 throughout
+    fused_precision: str = "default"
 
 
 @dataclass(frozen=True)

@@ -68,6 +68,19 @@
 // Tier "highest" runs every product as one tiled f32 GEMM on the CUDA cores
 // (gemm_kernel, 64x64 tiles) with the same fused epilogues, through a
 // scratch buffer in device memory.
+// Tier "high" (bf16x3, the TPU kernel's _dot3) takes the same route with
+// gemm3_kernel: the same 64x64 tiles, each operand split on its way into
+// shared memory into bf16 hi = bf16(v) and lo = bf16(v - hi), and the
+// passes run as mma.sync m16n8k16 (bf16 x bf16 -> f32) into two
+// accumulators, hi x hi and the lo terms. Which operands are split is what
+// JAX's differentiation of _dot3 makes of each product: an activation or a
+// tangent times W splits both (three passes); a cotangent times W^T keeps
+// the cotangent in bf16 and splits W (two passes, P + bf16((S + P) - P));
+// the weight cotangent splits [in; t_in] and keeps [abar; gamma] in bf16
+// (two passes, H + bf16((L + H) - H) after the split-K sum, reduce3_kernel).
+// Everything between the products stays f32, as in the TPU kernel. What
+// bounds it is the same as "default"'s, at 2 to 3 passes a product; this
+// first version does not pipeline its loads and does not reach that bound.
 //
 // Math (y = s x, e = PE(y), c = phi'(raw)/s):
 //   K1 forward: a_l = alpha_l in_l W_l + b_l, h_{l+1} = softplus100(a_l);
@@ -95,6 +108,10 @@
 
 enum { EPI_STORE = 0, EPI_FWD = 1, EPI_BWD_T = 2, EPI_BWD_P = 3 };
 enum { HEAD_ABS = 0, HEAD_SQUARE = 1, HEAD_SDF = 2 };
+enum { TIER_HIGHEST = 0, TIER_DEFAULT = 1, TIER_HIGH = 2 };
+// tier "high" products: activation x W (both split), cotangent x W^T (W
+// split), [in; t_in]^T x [abar; gamma] (the left side split)
+enum { P3_FWD = 0, P3_REV = 1, P3_WGRAD = 2 };
 
 // ---------------------------------------------------------------------------
 // tier "highest": f32 GEMMs on the CUDA cores
@@ -128,6 +145,9 @@ struct GemmArgs {
   float alpha;
   long c_split;    // STORE: offset of one split's partial
   Epi epi;
+  int mode3;       // tier "high": P3_FWD, P3_REV or P3_WGRAD
+  float a_scale;   // tier "high": A is scaled by it before the split
+  long lo_off;     // tier "high", P3_WGRAD: offset of the lo partials
 };
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
@@ -347,6 +367,136 @@ __global__ void reduce_kernel(const float* part, int splits, long count, float* 
   float s = 0.f;
   for (int z = 0; z < splits; ++z) s += part[(long)z * count + i];
   out[i] = s;
+}
+
+// ---------------------------------------------------------------------------
+// tier "high": bf16x3 on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+
+#define SK 40  // row stride (bf16) of an operand tile: 32 + 8 spreads the fragment loads over all banks
+
+__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a b, a [16 x 16] row-major and b [16 x 8] column-major fragments
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C = A @ B over [k_begin, k_end) of this blockIdx.z in bf16x3 passes, then
+// the epilogue: P3_FWD alpha (hh + lo terms); P3_REV alpha (hh + bf16((hl +
+// hh) - hh)); P3_WGRAD stores the hh and lh partials (lo_off apart) for
+// reduce3_kernel. Shapes as gemm_kernel's. Eight warps, each a 16 x 32
+// piece of the 64 x 64 tile: four m16n8 accumulators a pass class.
+__global__ void __launch_bounds__(NT) gemm3_kernel(GemmArgs g) {
+  __shared__ __align__(16) uint8_t smem[2 * BM * (BN + 1) * 4];  // operand tiles, then C
+  __nv_bfloat16* Ah = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][SK], k contiguous
+  __nv_bfloat16* Al = Ah + BM * SK;
+  __nv_bfloat16* Bh = Al + BM * SK;  // [BN][SK]: B transposed, k contiguous
+  __nv_bfloat16* Bl = Bh + BN * SK;
+  const bool a_lo = g.mode3 != P3_REV, b_lo = g.mode3 != P3_WGRAD;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * g.k_chunk;
+  const int ke = min(g.K, kb + g.k_chunk);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32, gid = lane >> 2, tig = lane & 3;
+  const bool a_kfast = g.sak == 1, b_nfast = g.sbn == 1;
+  float acc0[4][4], acc1[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc0[j][i] = acc1[j][i] = 0.f;
+
+  for (int k0 = kb; k0 < ke; k0 += BK) {
+    for (int i = t; i < BM * BK; i += NT) {
+      const int mm = a_kfast ? i / BK : i % BM, kk = a_kfast ? i % BK : i / BM;
+      const float v = g.a_scale * g.A[(long)(m0 + mm) * g.sam + (long)(k0 + kk) * g.sak];
+      const __nv_bfloat16 h = __float2bfloat16(v);
+      Ah[mm * SK + kk] = h;
+      if (a_lo) Al[mm * SK + kk] = __float2bfloat16(v - __bfloat162float(h));
+    }
+    for (int i = t; i < BK * BN; i += NT) {
+      const int kk = b_nfast ? i / BN : i % BK, nn = b_nfast ? i % BN : i / BK;
+      const float v = g.B[(long)(k0 + kk) * g.sbk + (long)(n0 + nn) * g.sbn];
+      const __nv_bfloat16 h = __float2bfloat16(v);
+      Bh[nn * SK + kk] = h;
+      if (b_lo) Bl[nn * SK + kk] = __float2bfloat16(v - __bfloat162float(h));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      const int ao = (wm + gid) * SK + ks + 2 * tig;
+      const uint32_t ah[4] = {ld32(Ah + ao), ld32(Ah + ao + 8 * SK), ld32(Ah + ao + 8),
+                              ld32(Ah + ao + 8 * SK + 8)};
+      uint32_t al[4] = {0u, 0u, 0u, 0u};
+      if (a_lo) {
+        al[0] = ld32(Al + ao); al[1] = ld32(Al + ao + 8 * SK);
+        al[2] = ld32(Al + ao + 8); al[3] = ld32(Al + ao + 8 * SK + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int bo = (wn + 8 * j + gid) * SK + ks + 2 * tig;
+        const uint32_t bh0 = ld32(Bh + bo), bh1 = ld32(Bh + bo + 8);
+        mma_bf16(acc0[j], ah, bh0, bh1);
+        if (b_lo) mma_bf16(acc1[j], ah, ld32(Bl + bo), ld32(Bl + bo + 8));
+        if (a_lo) mma_bf16(acc1[j], al, bh0, bh1);
+      }
+    }
+    __syncthreads();
+  }
+
+  float (*C0)[BN + 1] = reinterpret_cast<float (*)[BN + 1]>(smem);
+  float (*C1)[BN + 1] = C0 + BM;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm + gid + (i >> 1) * 8, c = wn + 8 * j + 2 * tig + (i & 1);
+      C0[r][c] = acc0[j][i];
+      C1[r][c] = acc1[j][i];
+    }
+  __syncthreads();
+
+  Epi e = g.epi;
+  if (g.mode3 == P3_WGRAD) {
+    float* c = e.c + (long)blockIdx.z * g.c_split;
+    for (int i = t; i < BM * BN; i += NT) {
+      const int r = i / BN, cc = i % BN;
+      const long o = (long)(m0 + r) * e.ldc + n0 + cc;
+      c[o] = C0[r][cc];
+      c[g.lo_off + o] = C1[r][cc];
+    }
+    return;
+  }
+  for (int i = t; i < BM * BN; i += NT) {
+    const int r = i / BN, cc = i % BN;
+    const float h = C0[r][cc], l = C1[r][cc];
+    // the reverse product is JAX's transpose of _dot3: the W_lo part's sum
+    // passes the bf16 cast of hi + lo - hi
+    const float v = g.mode3 == P3_FWD ? h + l : h + bf16r((l + h) - h);
+    epilogue(e, m0 + r, n0 + cc, g.alpha * v);
+  }
+}
+
+// out[i] = H + bf16((L + H) - H), H and L the sums over z (in z order) of
+// the hh and lh partials: the weight cotangent through _dot3's cast of W.
+__global__ void reduce3_kernel(const float* part, long lo_off, int splits, long count,
+                               float* out) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float h = 0.f, l = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    h += part[(long)z * count + i];
+    l += part[lo_off + (long)z * count + i];
+  }
+  out[i] = h + bf16r((l + h) - h);
 }
 
 // ---------------------------------------------------------------------------
@@ -1059,7 +1209,7 @@ bool make_net(int n_layers, const int* dims, int pe_w, Net* net) {
   return true;
 }
 
-// ----- tier "highest" -----
+// ----- tiers "highest" and "high" -----
 
 struct Scratch {
   float* in[MAX_LAYERS];
@@ -1067,8 +1217,9 @@ struct Scratch {
   float *g0, *g1, *ebar, *wpart, *bpart;
 };
 
-// rows_total = rows (K1) or 2 rows (K2); returns the float count.
-size_t carve(const Net& net, long rows_total, int splits, float* base, Scratch* s) {
+// rows_total = rows (K1) or 2 rows (K2); returns the float count. Tier
+// "high" keeps two partials (hh and lh) of the weight cotangent a split.
+size_t carve(const Net& net, long rows_total, int splits, bool high, float* base, Scratch* s) {
   size_t off = 0;
   for (int i = 0; i < net.n; ++i) {
     if (s) s->in[i] = base + off;
@@ -1083,14 +1234,28 @@ size_t carve(const Net& net, long rows_total, int splits, float* base, Scratch* 
   if (s) s->ebar = base + off;
   off += rows_total * net.pe_w;
   if (s) s->wpart = base + off;
-  off += (size_t)splits * net.max_kp * net.max_np;
+  off += (size_t)splits * net.max_kp * net.max_np * (high ? 2 : 1);
   if (s) s->bpart = base + off;
   off += (size_t)splits * net.max_np;
   return off;
 }
 
-void gemm(const GemmArgs& g, int splits, cudaStream_t st) {
-  gemm_kernel<<<dim3(g.N / BN, g.M / BM, splits), NT, 0, st>>>(g);
+// Tier "highest": gemm_kernel. Tier "high": gemm3_kernel in mode; alpha
+// then scales A before the split (P3_FWD, P3_WGRAD: JAX divides the skip
+// concat before its _dot3) or the result (P3_REV: after the transpose).
+void gemm(GemmArgs g, int splits, bool high, int mode, cudaStream_t st) {
+  const dim3 grid(g.N / BN, g.M / BM, splits);
+  if (!high) {
+    gemm_kernel<<<grid, NT, 0, st>>>(g);
+    return;
+  }
+  g.mode3 = mode;
+  g.a_scale = 1.f;
+  if (mode != P3_REV) {
+    g.a_scale = g.alpha;
+    g.alpha = 1.f;
+  }
+  gemm3_kernel<<<grid, NT, 0, st>>>(g);
 }
 
 GemmArgs row_gemm(const float* A, long lda, const float* B, long sbk, long sbn, int M, int N,
@@ -1121,7 +1286,7 @@ void embed(const Net& net, const Scratch& s, const float* x, int rows, int multi
 // Forward sweep over the rows [row0, row0 + rows) of every buffer. With
 // tangent, these are the tangent rows and the primal rows start at 0.
 void forward_sweep(const Net& net, const Scratch& s, const float* w, const float* b, int rows,
-                   long row0, bool tangent, cudaStream_t st) {
+                   long row0, bool tangent, bool high, cudaStream_t st) {
   for (int i = 0; i < net.n; ++i) {
     const Layer& L = net.l[i];
     Epi e = {};
@@ -1138,17 +1303,17 @@ void forward_sweep(const Net& net, const Scratch& s, const float* w, const float
       e.lda = L.np;
     }
     gemm(row_gemm(s.in[i] + row0 * L.kp, L.kp, w + L.w_off, L.np, 1, rows, L.np, L.kp, L.alpha, e),
-         1, st);
+         1, high, P3_FWD, st);
   }
 }
 
 void forward_f32(const Net& net, const float* xf, const float* w, const float* b, int multires,
                  float scale, int head, int d_out, int rows, float* udf, float* feat, float* grad,
-                 float* scratch, cudaStream_t st) {
+                 float* scratch, bool high, cudaStream_t st) {
   Scratch s;
-  carve(net, rows, 0, scratch, &s);
+  carve(net, rows, 0, high, scratch, &s);
   embed(net, s, xf, rows, multires, scale, nullptr, 0, st);
-  forward_sweep(net, s, w, b, rows, 0, false, st);
+  forward_sweep(net, s, w, b, rows, 0, false, high, st);
 
   const Layer& last = net.l[net.n - 1];
   float *gc = s.g0, *gn = s.g1;
@@ -1169,7 +1334,8 @@ void forward_f32(const Net& net, const float* xf, const float* w, const float* b
       e.gt = gn;
       e.ldg = L.kh;
     }
-    gemm(row_gemm(gc, L.np, w + L.w_off, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, st);
+    gemm(row_gemm(gc, L.np, w + L.w_off, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, high, P3_REV,
+         st);
     float* tmp = gc; gc = gn; gn = tmp;
   }
   pe_vjp_kernel<<<(rows + 127) / 128, 128, 0, st>>>(xf, rows, multires, scale, s.ebar, nullptr,
@@ -1179,15 +1345,15 @@ void forward_f32(const Net& net, const float* xf, const float* w, const float* b
 void backward_f32(const Net& net, const float* xf, const float* wf, const float* b, int multires,
                   float scale, int head, int d_out, int rows, const float* ubar, const float* fbar,
                   const float* gbar, float* xbar, float* wbar, float* bbar, float* scratch,
-                  int splits, cudaStream_t st) {
+                  int splits, bool high, cudaStream_t st) {
   Scratch s;
   const long R = rows;
   const int pe_w = net.pe_w;
-  carve(net, 2 * R, splits, scratch, &s);
+  carve(net, 2 * R, splits, high, scratch, &s);
 
   embed(net, s, xf, rows, multires, scale, gbar, R, st);
-  forward_sweep(net, s, wf, b, rows, 0, false, st);
-  forward_sweep(net, s, wf, b, rows, R, true, st);
+  forward_sweep(net, s, wf, b, rows, 0, false, high, st);
+  forward_sweep(net, s, wf, b, rows, R, true, high, st);
 
   const Layer& last = net.l[net.n - 1];
   float *gc = s.g0, *gn = s.g1;
@@ -1220,13 +1386,14 @@ void backward_f32(const Net& net, const float* xf, const float* wf, const float*
       e.gt = gn + R * L.kh;
       e.gp = gn;
     }
-    gemm(row_gemm(gc + R * L.np, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, st);
+    gemm(row_gemm(gc + R * L.np, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, high,
+         P3_REV, st);
     // primal rows: abar_{l-1} += sigma(100 a) (abar W^T)|h, ebar
     e.mode = EPI_BWD_P;
     e.ebar = s.ebar;
     e.atan = nullptr;
     e.gt = nullptr;
-    gemm(row_gemm(gc, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, st);
+    gemm(row_gemm(gc, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, high, P3_REV, st);
     // W̄ = alpha [in; t_in]^T [abar; gamma], split-K partials then a reduction
     GemmArgs g = {};
     g.A = s.in[i]; g.sam = 1; g.sak = L.kp;
@@ -1237,9 +1404,14 @@ void backward_f32(const Net& net, const float* xf, const float* wf, const float*
     g.epi.mode = EPI_STORE;
     g.epi.c = s.wpart;
     g.epi.ldc = L.np;
-    gemm(g, w_splits, st);
+    g.lo_off = (long)splits * net.max_kp * net.max_np;
+    gemm(g, w_splits, high, P3_WGRAD, st);
     const long wcnt = (long)L.kp * L.np;
-    reduce_kernel<<<(wcnt + 255) / 256, 256, 0, st>>>(s.wpart, w_splits, wcnt, wbar + L.w_off);
+    if (high)
+      reduce3_kernel<<<(wcnt + 255) / 256, 256, 0, st>>>(s.wpart, g.lo_off, w_splits, wcnt,
+                                                          wbar + L.w_off);
+    else
+      reduce_kernel<<<(wcnt + 255) / 256, 256, 0, st>>>(s.wpart, w_splits, wcnt, wbar + L.w_off);
     // b̄ = sum of abar over the primal rows
     colsum_kernel<<<dim3((L.np + 127) / 128, splits), 128, 0, st>>>(gc, rows, L.np, b_chunk,
                                                                    s.bpart);
@@ -1395,34 +1567,36 @@ int fill_items(const Net& net, const SweepArgs& a, WItem* items) {
 
 extern "C" {
 
-// Bytes of scratch one call needs. bf16: tier "default"; 0 if the kernels do
-// not take this net.
+// Bytes of scratch one call needs at tier (TIER_HIGHEST, TIER_DEFAULT,
+// TIER_HIGH); 0 if the kernels do not take this net.
 size_t fd_scratch_bytes(int n_layers, const void* dims, int pe_w, int multires, int rows,
-                        int backward, int splits, int bf16) {
+                        int backward, int splits, int tier) {
   Net net;
   if (!make_net(n_layers, (const int*)dims, pe_w, &net)) return 0;
-  if (bf16) {
+  if (tier == TIER_DEFAULT) {
     if (!sweep_takes(net, multires, rows) || splits < 1) return 0;
     return carve_fast(net, rows, backward != 0, splits, nullptr, nullptr);
   }
-  if (rows % BM) return 0;
-  return sizeof(float) * carve(net, backward ? 2L * rows : rows, backward ? splits : 0, nullptr,
-                               nullptr);
+  if (rows % BM || (tier != TIER_HIGHEST && tier != TIER_HIGH)) return 0;
+  return sizeof(float) * carve(net, backward ? 2L * rows : rows, backward ? splits : 0,
+                               tier == TIER_HIGH, nullptr, nullptr);
 }
 
-// K1. x [rows,3] (rows a multiple of 64, of 128 with bf16); outputs
+// K1. x [rows,3] (rows a multiple of 64, of 128 at tier "default"); outputs
 // udf [rows,1], feat [rows,d_out-1], grad [rows,3].
 int fd_forward(const void* x, const void* w, const void* b, int n_layers, const void* dims,
-               int pe_w, int multires, float scale, int head, int d_out, int rows, int bf16,
+               int pe_w, int multires, float scale, int head, int d_out, int rows, int tier,
                void* udf, void* feat, void* grad, void* scratch, void* stream) {
   Net net;
   if (rows % BM || !make_net(n_layers, (const int*)dims, pe_w, &net)) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!bf16) {
+  if (tier == TIER_HIGHEST || tier == TIER_HIGH) {
     forward_f32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale, head,
-                d_out, rows, (float*)udf, (float*)feat, (float*)grad, (float*)scratch, st);
+                d_out, rows, (float*)udf, (float*)feat, (float*)grad, (float*)scratch,
+                tier == TIER_HIGH, st);
     return (int)cudaGetLastError();
   }
+  if (tier != TIER_DEFAULT) return cudaErrorInvalidValue;
   if (!sweep_takes(net, multires, rows) || d_out > net.l[net.n - 1].np) return cudaErrorInvalidValue;
   FastScratch fs;
   carve_fast(net, rows, false, 0, (uint8_t*)scratch, &fs);
@@ -1444,19 +1618,21 @@ int fd_forward(const void* x, const void* w, const void* b, int n_layers, const 
 // K2. Cotangents ubar [rows,1], fbar [rows,d_out-1], gbar [rows,3];
 // outputs x̄ [rows,3], W̄ and b̄ packed like w and b.
 int fd_backward(const void* x, const void* w, const void* b, int n_layers, const void* dims,
-                int pe_w, int multires, float scale, int head, int d_out, int rows, int bf16,
+                int pe_w, int multires, float scale, int head, int d_out, int rows, int tier,
                 const void* ubar, const void* fbar, const void* gbar, void* xbar, void* wbar,
                 void* bbar, void* scratch, int splits, void* stream) {
   Net net;
   if (rows % BM || splits < 1 || !make_net(n_layers, (const int*)dims, pe_w, &net))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!bf16) {
+  if (tier == TIER_HIGHEST || tier == TIER_HIGH) {
     backward_f32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale, head,
                  d_out, rows, (const float*)ubar, (const float*)fbar, (const float*)gbar,
-                 (float*)xbar, (float*)wbar, (float*)bbar, (float*)scratch, splits, st);
+                 (float*)xbar, (float*)wbar, (float*)bbar, (float*)scratch, splits,
+                 tier == TIER_HIGH, st);
     return (int)cudaGetLastError();
   }
+  if (tier != TIER_DEFAULT) return cudaErrorInvalidValue;
   if (!sweep_takes(net, multires, rows) || d_out > net.l[net.n - 1].np) return cudaErrorInvalidValue;
   FastScratch fs;
   carve_fast(net, rows, true, splits, (uint8_t*)scratch, &fs);

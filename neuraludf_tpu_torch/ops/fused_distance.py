@@ -20,13 +20,28 @@ Beside the kernels live two plain versions of the same function:
 The Function takes the explicit version only for tensors on the CPU; a
 CUDA tensor launches the kernels or raises.
 
-Tiers (``cfg.fused_precision``): "highest" = f32 operands on the CUDA cores;
-"default" = bf16 operands with f32 accumulation on the tensor cores. There
-the kernels also keep what the reverse sweep reads back from the forward one
-in bf16: sigma(100 a) and, for K2, q = 100 sigma (1 - sigma) t_a. The explicit
-version rounds its matmul operands and these two to bf16 the same way, so it
-stays the kernels' arithmetic step by step. The "default" kernels take the
-widths they were written for (``default_tier_takes``); another net raises.
+Tiers (``cfg.fused_precision``), with the JAX package's ``_DOTS``:
+
+* "highest": f32 operands on the CUDA cores; nothing is kept in bf16.
+* "high": bf16x3, as the TPU kernel's ``_dot3`` runs on the MXU. Every pass
+  rounds both operands to bf16 and accumulates in f32. A product of an
+  activation or a tangent t with W splits both: (t_hi W_hi + t_hi W_lo) +
+  t_lo W_hi, hi = bf16(v) and lo = bf16(v - hi). A product of a cotangent g
+  with W^T (the gradient sweep, the reverse sweep) is what JAX's transpose
+  of that makes: P + bf16((S + P) - P) with P = bf16(g) W_hi^T and S =
+  bf16(g) W_lo^T, so g itself is kept in bf16 and so is the W_lo part's sum.
+  The weight cotangent is H + bf16((L + H) - H), H = [in; t_in]_hi^T
+  bf16([abar; gamma]) and L the same with the lo parts. sigma(100 a), q and
+  every other value stay f32, as in the TPU kernel.
+* "default": bf16 operands with f32 accumulation on the tensor cores, one
+  pass. There the kernels also keep what the reverse sweep reads back from
+  the forward one in bf16: sigma(100 a) and, for K2, q = 100 sigma (1 -
+  sigma) t_a.
+
+The explicit version rounds its operands and those values in the same
+places, so it stays the kernels' arithmetic step by step. The "default"
+and "high" kernels take the widths the "default" sweeps were written for
+(``default_tier_takes``); another net raises there and runs at "highest".
 """
 
 from __future__ import annotations
@@ -46,13 +61,14 @@ from ..nets.mlp import softplus100, weight
 from . import build
 
 TILE = 64  # the kernels' column tile; every padded width is a multiple
-ROW_TILE = {"highest": 64, "default": 128}  # rows are padded to the tier's row tile
+ROW_TILE = {"highest": 64, "high": 64, "default": 128}  # rows are padded to the tier's row tile
 # split-K partial sums of the weight cotangent ("default": 20 output tiles x 13
 # splits are two waves of blocks on 132 SMs)
-W_SPLITS = {"highest": 64, "default": 13}
+W_SPLITS = {"highest": 64, "high": 64, "default": 13}
 SWEEP_WIDTH = 256  # hidden width of the "default" kernels' sweeps
 HEADS = {"abs": 0, "square": 1, "sdf": 2}
-TIERS = ("default", "highest")
+TIERS = ("default", "high", "highest")
+TIER_CODE = {"highest": 0, "default": 1, "high": 2}  # the kernels' TIER_* constants
 
 
 def _round_up(v: int, m: int) -> int:
@@ -81,10 +97,6 @@ def fused_enabled(cfg: UDFNetworkConfig, device: torch.device) -> bool:
 
 def precision_tier(cfg: UDFNetworkConfig) -> str:
     tier = (cfg.fused_precision or "default").lower()
-    if tier == "high":
-        raise NotImplementedError(
-            "fused_precision='high' (bf16x3) is not ported yet (ROADMAP: slice 1, open item 3)"
-        )
     if tier not in TIERS:
         raise ValueError(f"fused_precision must be one of {TIERS}, got {tier!r}")
     return tier
@@ -241,14 +253,56 @@ def plain_autograd(x, ws, bs, cfg: UDFNetworkConfig):
     return fields.distance_value_and_gradient_plain(params, x, cfg)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
 def _stored(t: torch.Tensor, tier: str) -> torch.Tensor:
     """A value as the kernels keep it between sweeps: bf16 at tier "default"."""
-    return t.to(torch.bfloat16).float() if tier == "default" else t
+    return _bf16(t) if tier == "default" else t
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
-    # the kernels' bf16 operands, f32 accumulation
+    # one pass: the kernels' bf16 operands ("default"), f32 accumulation
     return _stored(a, tier) @ _stored(b, tier)
+
+
+def _split(t: torch.Tensor):
+    """(hi, lo) of bf16x3: hi = bf16(t); lo = t - hi, rounded by its pass."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _fwd_mm(inp: torch.Tensor, W: torch.Tensor, alpha: float, tier: str) -> torch.Tensor:
+    """alpha inp W of an activation or a tangent. At "high" the scaled input
+    is split (JAX divides the skip concat before its _dot3)."""
+    if tier != "high":
+        return alpha * _mm(inp, W, tier)
+    xh, xl = _split(alpha * inp)
+    wh, wl = _split(W)
+    return (xh @ wh + xh @ wl) + xl @ wh
+
+
+def _rev_mm(g: torch.Tensor, W: torch.Tensor, alpha: float, tier: str) -> torch.Tensor:
+    """alpha g W^T of a cotangent g. At "high", JAX's transpose of _dot3:
+    P + bf16((S + P) - P), the cotangent in bf16 (the cast's transpose)."""
+    if tier != "high":
+        return alpha * _mm(g, W.T, tier)
+    wh, wl = _split(W)
+    gh = _bf16(g)
+    p = gh @ wh.T
+    return alpha * (p + _bf16((gh @ wl.T + p) - p))
+
+
+def _w_mm(ins, tins, abar, gam, alpha: float, tier: str) -> torch.Tensor:
+    """W̄ = alpha [in; t_in]^T [abar; gamma]. At "high": H + bf16((L + H) -
+    H), the transpose of _dot3's W split over both rows of uses."""
+    if tier != "high":
+        return alpha * (_mm(ins.T, abar, tier) + _mm(tins.T, gam, tier))
+    xh, xl = _split(alpha * torch.cat([ins, tins], 0))
+    g = _bf16(torch.cat([abar, gam], 0))
+    h = xh.T @ g
+    return h + _bf16((xl.T @ g + h) - h)
 
 
 def _pe(x: torch.Tensor, lay: Layout):
@@ -294,12 +348,12 @@ def _sweep(e, W, B, lay: Layout, tier: str, te=None):
             tin = torch.cat([th, te], -1) if te is not None else None
         else:
             inp, tin = h, th
-        a = lay.alpha(l) * _mm(inp, W[l], tier) + B[l]
+        a = _fwd_mm(inp, W[l], lay.alpha(l), tier) + B[l]
         ins.append(inp)
         acts.append(a)
         h = softplus100(a)
         if te is not None:
-            ta = lay.alpha(l) * _mm(tin, W[l], tier)
+            ta = _fwd_mm(tin, W[l], lay.alpha(l), tier)
             tins.append(tin)
             tacts.append(ta)
             th = torch.sigmoid(100.0 * a) * ta
@@ -317,7 +371,7 @@ def explicit_forward(x, wflat, bflat, lay: Layout, tier: str):
     g[:, 0] = c
     eps = torch.zeros_like(e)
     for l in reversed(range(lay.n_layers)):
-        d = lay.alpha(l) * _mm(g, W[l].T, tier)
+        d = _rev_mm(g, W[l], lay.alpha(l), tier)
         kh = lay.kh[l]
         eps = eps + d[:, kh:] if d.shape[1] > kh else eps
         if l > 0:
@@ -347,10 +401,10 @@ def explicit_backward(x, wflat, bflat, lay: Layout, tier: str, ubar, fbar, gbar)
     Wb, Bb = lay.views(wbar, bbar)
     for l in reversed(range(lay.n_layers)):
         al = lay.alpha(l)
-        Wb[l].copy_(al * (_mm(ins[l].T, abar, tier) + _mm(tins[l].T, gam, tier)))
+        Wb[l].copy_(_w_mm(ins[l], tins[l], abar, gam, al, tier))
         Bb[l].copy_(abar.sum(0))
-        dg = al * _mm(gam, W[l].T, tier)
-        da = al * _mm(abar, W[l].T, tier)
+        dg = _rev_mm(gam, W[l], al, tier)
+        da = _rev_mm(abar, W[l], al, tier)
         kh = lay.kh[l]
         if dg.shape[1] > kh:
             eps = eps + dg[:, kh:]
@@ -417,9 +471,9 @@ class _Kernel:
         _check(x, "x", x.shape, x.device)
         _check(wflat, "wflat", (lay.w_offsets()[-1],), x.device)
         _check(bflat, "bflat", (lay.b_offsets()[-1],), x.device)
-        if tier == "default" and not default_tier_takes(lay):
+        if tier in ("default", "high") and not default_tier_takes(lay):
             raise ValueError(
-                f"{self.name}: the 'default' kernels take a {TILE}-wide embedding, "
+                f"{self.name}: the '{tier}' kernels take a {TILE}-wide embedding, "
                 f"{SWEEP_WIDTH}-wide hidden layers and a head of {SWEEP_WIDTH + 1} to "
                 f"{SWEEP_WIDTH + TILE} outputs; use fused_precision='highest' for {lay}")
         dims = (ctypes.c_int * (4 * lay.n_layers))(*lay.dims())
@@ -431,7 +485,7 @@ class _Kernel:
         depends on the card's SM count)."""
         n = library().fd_scratch_bytes(lay.n_layers, ctypes.addressof(dims), lay.pe_w,
                                        lay.multires, rows, int(backward), W_SPLITS[tier],
-                                       int(tier == "default"))
+                                       TIER_CODE[tier])
         if n == 0:
             raise ValueError(f"{self.name}: layout rejected by the kernel: {lay}")
         return torch.empty(n, dtype=torch.uint8, device=dev)
@@ -457,7 +511,7 @@ class _ForwardKernel(_Kernel):
             rc = lib.fd_forward(
                 xp.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), lay.n_layers,
                 ctypes.addressof(dims), lay.pe_w, lay.multires, lay.scale, HEADS[lay.head],
-                lay.d_out, rows, int(tier == "default"), udf.data_ptr(), feat.data_ptr(),
+                lay.d_out, rows, TIER_CODE[tier], udf.data_ptr(), feat.data_ptr(),
                 grad.data_ptr(), scratch.data_ptr(), stream,
             )
             self.launches += 1
@@ -482,7 +536,7 @@ class _BackwardKernel(_Kernel):
             rc = lib.fd_backward(
                 xp.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), lay.n_layers,
                 ctypes.addressof(dims), lay.pe_w, lay.multires, lay.scale, HEADS[lay.head],
-                lay.d_out, rows, int(tier == "default"), up.data_ptr(), fp.data_ptr(),
+                lay.d_out, rows, TIER_CODE[tier], up.data_ptr(), fp.data_ptr(),
                 gp.data_ptr(), xbar.data_ptr(), wbar.data_ptr(), bbar.data_ptr(),
                 scratch.data_ptr(), W_SPLITS[tier], stream,
             )

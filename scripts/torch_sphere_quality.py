@@ -22,10 +22,27 @@
    sphere, classic marching cubes of |x| - 0.5 at R³, both ways: the floor
    of each protocol at R³.
 
-The closing mesh is copied beside ``--out``. With ``--no_score`` the card
-only trains; ``--score_only <mesh.ply>`` then scores that copy on any
-machine, without a card. Prints one JSON line, and writes it to ``--out``
-too. Imports nothing of the JAX package.
+``--fused_precision`` (default | high | highest) and ``--fused_core``
+(auto | on | off) train at another tier of the fused distance kernels: the
+script writes a copy of the configuration with
+``model.udf_network.fused_precision`` / ``fused_core`` set (the counterpart
+of the JAX package's ``NEURALUDF_FUSED_PRECISION`` override) and an
+experiment directory of its own, ``exp/udf/synthetic_<tag>/sphere``, so
+that runs at several tiers can share a card:
+
+    python3 scripts/torch_sphere_quality.py --iters 2500 --stage 2500 \
+        --fused_precision high --out exp/quality/high.json
+
+After training it also reads the field of the newest checkpoint along 256
+fixed directions at radii 0 to 1.2 (``radial``: the minimum, median and
+maximum UDF at each radius; the sphere's radius is 0.5) and keeps the last
+iteration's metrics.
+
+The closing mesh is copied into ``--mesh_dir`` (beside ``--out`` unless
+given). With ``--no_score`` the card only trains; ``--score_only
+<mesh.ply>`` then scores that copy on any machine, without a card. Prints
+one JSON line, and writes it to ``--out`` too. Imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -78,6 +96,47 @@ def exact_sphere_mesh(path, resolution: int) -> str:
     return export_ply(path, verts * (2.0 / (resolution - 1)) - 1.0, faces)
 
 
+def tier_conf(base: str, precision: str, core: str) -> tuple:
+    """(path, tag) of a copy of ``base`` whose udf_network runs the fused
+    kernels at ``precision`` / ``core`` and trains into its own experiment
+    directory; ``base`` itself when neither is given."""
+    if not precision and not core:
+        return base, ""
+    tag = "_".join(t for t in (precision, f"core_{core}" if core else "") if t)
+    text = open(base).read()
+    keys = "".join(f"\n    {k} = {v}" for k, v in (("fused_precision", precision),
+                                                       ("fused_core", core)) if v)
+    text, n = re.subn(r"udf_network\s*\{", lambda m: m.group(0) + keys, text, count=1)
+    text, m = re.subn(r"base_exp_dir\s*=\s*\./exp/udf/synthetic/",
+                      f"base_exp_dir = ./exp/udf/synthetic_{tag}/", text, count=1)
+    if n != 1 or m != 1:
+        raise ValueError(f"{base}: no udf_network block or base_exp_dir to set")
+    path = os.path.join("exp", "confs", f"synthetic_smoke_{tag}.conf")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    return path, tag
+
+
+def radial_profile(conf: str, ckpt: str, radii=np.linspace(0.0, 1.2, 25), n_dirs: int = 256):
+    """min / median / max UDF of the trained field over n_dirs fixed
+    directions at each radius (plain path, on the CPU)."""
+    import torch
+
+    from neuraludf_tpu_torch import config, convert
+    from neuraludf_tpu_torch.nets import fields
+
+    cfg = config.load(conf, case="sphere").model.udf_network
+    params = convert.load_checkpoint(ckpt, "cpu")["params"]["udf"]
+    d = np.random.RandomState(0).randn(n_dirs, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = (radii[:, None, None] * d[None]).reshape(-1, 3).astype(np.float32)
+    with torch.no_grad():
+        u = fields.distance_value(params, torch.from_numpy(pts), cfg).numpy().reshape(len(radii), -1)
+    return {f"{r:.2f}": [float(u[i].min()), float(np.median(u[i])), float(u[i].max())]
+            for i, r in enumerate(radii)}
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=30000)
@@ -87,6 +146,9 @@ def main() -> int:
     p.add_argument("--out", default=os.path.join(ROOT, "exp", "torch_sphere_quality.json"))
     p.add_argument("--no_score", action="store_true")
     p.add_argument("--score_only", default="")
+    p.add_argument("--mesh_dir", default="", help="where the closing mesh is copied")
+    p.add_argument("--fused_precision", default="", choices=["", "default", "high", "highest"])
+    p.add_argument("--fused_core", default="", choices=["", "auto", "on", "off"])
     args = p.parse_args()
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)  # the configuration's paths are relative to the checkout
@@ -96,11 +158,13 @@ def main() -> int:
     from neuraludf_tpu_torch import cli
     from neuraludf_tpu_torch.data.synthetic import generate_scene, gt_surface_points
 
+    mesh_dir = args.mesh_dir or os.path.dirname(os.path.abspath(args.out))
+    os.makedirs(mesh_dir, exist_ok=True)
+
     def scores(mesh: str) -> dict:
         t_score = time.time()
         gt = gt_surface_points("sphere")
-        floor = exact_sphere_mesh(os.path.join(os.path.dirname(os.path.abspath(args.out)),
-                                               f"exact_sphere_res{args.resolution}.ply"),
+        floor = exact_sphere_mesh(os.path.join(mesh_dir, f"exact_sphere_res{args.resolution}.ply"),
                                   args.resolution)
         density = 1.0 / (args.resolution - 1)
         return {"mesh": score(mesh, gt, density), "exact_sphere": score(floor, gt, density),
@@ -126,7 +190,8 @@ def main() -> int:
     if not os.path.isfile(os.path.join(scene, "cameras.npz")):
         generate_scene(scene, kind="sphere", n_views=16, H=600, W=800)
 
-    base = ["--conf", "confs/synthetic_smoke.conf", "--case", "sphere", "--is_continue"]
+    conf, tag = tier_conf("confs/synthetic_smoke.conf", args.fused_precision, args.fused_core)
+    base = ["--conf", conf, "--case", "sphere", "--is_continue"]
     t0, longest, done, stages = time.time(), 0.0, 0, []
     while done < args.iters and time.time() - t0 + 1.1 * longest < args.budget_s:
         t_stage = time.time()
@@ -136,11 +201,18 @@ def main() -> int:
         stages.append(time.time() - t_stage)
         longest = max(stages)
         print(f"stage to {done} iterations: {stages[-1]:.1f} s", flush=True)
-    exp = os.path.join("exp", "udf", "synthetic", "sphere", "udf_synthetic")
+    exp = os.path.join("exp", "udf", f"synthetic_{tag}" if tag else "synthetic", "sphere",
+                       "udf_synthetic")
     mesh = shutil.copy(os.path.join(exp, "udf_meshes", f"udf_res{args.resolution}_step{done}.ply"),
-                       os.path.dirname(os.path.abspath(args.out)))
+                       os.path.join(mesh_dir, f"udf_res{args.resolution}_step{done}"
+                                    f"{'_' + tag if tag else ''}.ply"))
+    with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+        last = json.loads(f.readlines()[-1])
+    ckpt = os.path.join(exp, "checkpoints", sorted(os.listdir(os.path.join(exp, "checkpoints")))[-1])
     row = {"iters": done, "resolution": args.resolution, "stages_s": stages, "card": card,
-           "mesh_path": mesh}
+           "conf": conf, "fused_precision": args.fused_precision or "conf",
+           "fused_core": args.fused_core or "conf", "mesh_path": mesh, "last_metrics": last,
+           "radial_ckpt": os.path.basename(ckpt), "radial": radial_profile(conf, ckpt)}
     return emit(row if args.no_score else {**row, **scores(mesh)})
 
 

@@ -95,7 +95,21 @@ SAMPLING = {
     "uniform_samples": ({"n_samples": 16, "n_importance": 0, "n_outside": 8}, 2e-5),
     "up_sampling": ({"n_samples": 16, "n_importance": 8, "n_outside": 8,
                      "up_sample_steps": 4}, 5e-3),
+    # the garment renderer of confs/udf_garment_blending.conf: importance_sample_mix
+    # (up_sample_no_occ_aware rounds, then an unbiased one), the cosine from the
+    # normalised gradient, no background NeRF. Its gradients agree to 1.6e-5
+    # here (measured): the no-occlusion rounds' alphas are not the ill-
+    # conditioned differences of sigmoids of the classical rounds
+    "mix": ({"n_samples": 16, "n_importance": 80, "n_outside": 0, "up_sample_steps": 5,
+             "upsampling_type": "mix", "use_norm_grad_for_cosine": True}, 2e-4),
 }
+
+
+# Metrics held looser than rtol 1e-4 in one sampling mode. The mix rounds
+# place samples on the surface, where sparse_error's exp(-25000 udf) turns
+# the ~1e-4 by which the rounds move a sample into 1.4e-3 (measured; the
+# render test holds it at SPARSE_TOL for the same reason).
+METRIC_RTOL = {"mix": {"sparse_error": 5e-3}}
 
 
 @pytest.mark.parametrize("sampling", sorted(SAMPLING))
@@ -130,7 +144,8 @@ def test_one_step_matches_jax(scene_dir, tmp_path, monkeypatch, sampling):
     assert set(metrics_t) == set(tstep.METRIC_KEYS)
     for name in tstep.METRIC_KEYS:
         np.testing.assert_allclose(float(metrics_t[name]), float(metrics_j[name]),
-                                   rtol=1e-4, atol=1e-6, err_msg=name)
+                                   rtol=METRIC_RTOL.get(sampling, {}).get(name, 1e-4),
+                                   atol=1e-6, err_msg=name)
     assert float(metrics_t["loss"]) == pytest.approx(float(total.detach()))
 
     grads_t = tstep.param_grads(total, params_t)
@@ -139,7 +154,9 @@ def test_one_step_matches_jax(scene_dir, tmp_path, monkeypatch, sampling):
         gt = np.zeros_like(gj) if gt is None else gt.numpy()
         scale = max(float(np.abs(gj).max()), 1e-6)
         np.testing.assert_allclose(gt / scale, gj / scale, atol=grad_tol, err_msg=str(path))
-    assert float(np.abs(grads_j["nerf"]["rgb"]["w"]).max()) > 0.0
+    # the background NeRF trains where the renderer has outside samples
+    nerf_grad = float(np.abs(grads_j["nerf"]["rgb"]["w"]).max())
+    assert nerf_grad > 0.0 if renderer_cfg["n_outside"] else nerf_grad == 0.0
 
     # Adam on identical gradients, in f32 with the same operation order, held
     # to rtol 2.5e-7 (two f32 ulps): XLA's CPU code generator may contract
