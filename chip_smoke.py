@@ -21,8 +21,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
 5. one training loss and its gradients on a small batch through the kernels
    (tiers "highest" and "high") against the plain autograd path;
 6. the stage-1 main path: ``Runner.train`` on ``confs/synthetic_smoke.conf``
-   at full width for a few windows, launch counts of K1 and K2 read around
-   it; its last checkpoint is what the finetune starts from;
+   at full width for a few windows of 50 iterations, each (after two eager
+   warm-up steps and the capture of the first) the replays of one CUDA graph
+   of the step body, launch counts of K1 and K2 read around it (a replay
+   adds the launches its capture made); its last checkpoint is what the
+   finetune starts from;
 7. kernel K3 (the warp sampler) at the finetune's shape (8 views of the
    scene, 600x800; positions [8, 2048, 976]: clustered in-image positions
    and a block of out-of-image, exact-border, huge and NaN ones) against its
@@ -35,7 +38,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``confs/udf_dtu_blending_ft.conf`` (``is_finetune``) loads the stage-1
    checkpoint and trains 100 steps at full width; K1, K2 and K3 must each
    launch once a step, the pixel and patch losses must be nonzero;
-9a. ``[high]``: both training paths again at ``fused_precision = "high"``,
+9a. ``[window]``: from the stage-1 checkpoint, 50 iterations of each
+   training path through the graph-replayed window and twice through the
+   eager step body, three runners on one start state and generator state:
+   the graphed run's launch counts (K1 = K2 = 50, K3 = 50 in the finetune),
+   its metric rows, parameters and generator state against the eager run's
+   (``TOL_WINDOW``); then 5 repeats of 20 steps each, graphed against eager,
+   ended by a synchronize (median and spread of ms a step), the device-busy
+   share and kernel count of a replayed step (torch.profiler), and the
+   memory the graph's pool takes;
+9b. ``[high]``: both training paths again at ``fused_precision = "high"``,
    one window of 50 steps each from the stage-1 checkpoint, at full width,
    with the same launch counts;
 10. ``[mesh]`` on the stage-1 runner's field (its 200-step state): the
@@ -59,8 +71,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     their validation image;
 12. CUDA-event times of K1, K2 (each tier), K3, their plain versions and
     K3's library call, at the training shapes and at the validation chunk's; the profile
-    of one validation chunk; the host-clock time and the profile of a
-    steady step of each path.
+    of one validation chunk; the profile of a steady eager step of each
+    path.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -96,7 +108,6 @@ FT_STEPS = 100  # steps of the finetune main path
 FT_SCHEDULE = {"train__warm_up_end": 10, "train__anneal_end": 50, "train__fix_geo_end": 1}
 K3_SHAPE = (8, 2048, 976)  # views, rays x chunks (512 x 4), chunk x (121 + 1) positions
 K3_FLOPS_PER_POSITION = 29  # 8 for the weights, 7 per channel for the blend
-N_TIMED_STEPS = 20
 REPS = 10  # kernel launches per timing
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 CUDA
@@ -164,6 +175,25 @@ TOL_K3 = {"plain": 1e-5, "library": 5e-4}
 # cancellation turns the 2e-7 into 3e-3 of a colour-net leaf's gradient
 # (measured; the pixel-blending term alone agrees to 2e-7).
 TOL_STEP_BLENDING = {"ssim": 1e-2, "l1": TOL_STEP}
+# The window phase: WINDOW_STEPS iterations of each training path through
+# the graph-replayed window and through the eager step body (twice), three
+# runners from one checkpoint and generator state, on the same schedule
+# rows and views. Graph and eager launch the same kernels on the same
+# inputs in the same order. Where the eager loop repeats itself bit for bit
+# (K1 and K2 are deterministic, K2 bit-equal over two calls above; K3 is a
+# forward-only gather; cuBLAS and PyTorch's reductions are deterministic on
+# one card; measured: every row and parameter, both paths), the graphed run
+# must equal it bit for bit: every metric row, every parameter, and the
+# generator's state after. Otherwise the loop is chaotic (an ulp grows to a
+# different run after ~200 steps, PERF.md §6), and the graphed run is held
+# as tests/test_torch_trajectory.py holds the port to JAX: its loss and
+# parameters (relative to each leaf's largest entry) no further from the
+# eager run than TOL_WINDOW or 10x the eager run's own spread. A schedule
+# value baked into the graph (the lr and cos_anneal_ratio change every step
+# here) moves the loss by 1e-3 or more within a few steps.
+WINDOW_STEPS = 50
+TOL_WINDOW = 1e-5
+TIMED_REPEATS, TIMED_STEPS = 5, 20  # step timing: repeats of 20 iterations each
 # The mesh phase. The CLI's closing extraction is at 512³
 # (--final_mesh_resolution); validate_mesh and the incremental check at the
 # runner's default 256³; the card-against-CPU grid at 64³.
@@ -602,6 +632,183 @@ def check_finetune_rows(rows):
         f"psnr {mean('psnr'):.2f}")
 
 
+def window_inputs(runner, k: int):
+    """The schedules, schedule rows and views of k iterations from the
+    runner's iter_step (views in order, as a device tensor)."""
+    from neuraludf_tpu_torch.train import schedules
+
+    scheds = [runner._schedules_at(runner.iter_step + j) for j in range(k)]
+    rows = torch.from_numpy(schedules.schedule_rows(scheds)).to(runner.device)
+    idxs = (torch.arange(k, device=runner.device) + runner.iter_step) % runner.dataset.n_images
+    return scheds, rows, idxs
+
+
+def eager_steps(runner, scheds, rows, idxs) -> torch.Tensor:
+    """The eager step body over the given iterations: metric rows [k, M]."""
+    from neuraludf_tpu_torch.train.step import METRIC_KEYS
+
+    body = runner.step_body(scheds[0])
+    out = []
+    for j in range(len(scheds)):
+        m = body(runner.params, runner.opt_state, runner.dataset.scene, idxs[j], rows[j],
+                 runner.generator)
+        out.append(torch.stack([m[name] for name in METRIC_KEYS]))
+    runner.iter_step += len(scheds)
+    return torch.stack(out)
+
+
+def graphed_steps(runner, scheds, rows, idxs) -> torch.Tensor:
+    """The same iterations through the runner's window of len(scheds)."""
+    from neuraludf_tpu_torch.train import schedules
+
+    window_fn = runner._get_window_fn(schedules.is_blending(scheds[0]), len(scheds))
+    out = window_fn(runner.params, runner.opt_state, runner.dataset.scene, idxs,
+                    runner.generator, rows)
+    runner.iter_step += len(scheds)
+    return out
+
+
+def differences(rows_a, rows_b, runner_a, runner_b) -> dict:
+    """How two runs of the same iterations differ: bit equality of the first
+    step's metric row and of all rows, the largest relative difference of
+    the loss over the steps, of each parameter leaf (to its largest entry)
+    at the end, and whether both consumed the generator alike."""
+    from neuraludf_tpu_torch.train.optim import leaves
+    from neuraludf_tpu_torch.train.step import METRIC_KEYS
+
+    loss = METRIC_KEYS.index("loss")
+    worst, leaf = 0.0, ""
+    for (path, a), (_, b) in zip(leaves(runner_a.params), leaves(runner_b.params)):
+        rel = (a.detach() - b.detach()).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, leaf = rel, "/".join(path)
+    return {"first_step_bit_equal": torch.equal(rows_a[0], rows_b[0]),
+            "all_rows_bit_equal": torch.equal(rows_a, rows_b),
+            "loss_max_rel": ((rows_a[:, loss] - rows_b[:, loss]).abs()
+                             / rows_b[:, loss].abs()).max().item(),
+            "params_max_rel": worst, "params_worst_leaf": leaf,
+            "generators_equal": torch.equal(runner_a.generator.get_state(),
+                                            runner_b.generator.get_state())}
+
+
+def time_windows(g_runner, e_runner, card) -> dict:
+    """Host-clock ms a step of TIMED_REPEATS repeats of TIMED_STEPS
+    iterations, graphed (a window of TIMED_STEPS, captured before the
+    timing) against eager, alternating, each ended by a synchronize."""
+    scheds, rows, idxs = window_inputs(g_runner, TIMED_STEPS)
+    graphed_steps(g_runner, scheds, rows, idxs)  # warm-up and capture
+    eager_steps(e_runner, scheds[:1], rows[:1], idxs[:1])
+    times = {"graphed": [], "eager": []}
+    for _ in range(TIMED_REPEATS):
+        for name, run, r in (("graphed", graphed_steps, g_runner),
+                             ("eager", eager_steps, e_runner)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            run(r, scheds, rows, idxs)
+            torch.cuda.synchronize()
+            times[name].append((time.time() - t0) / TIMED_STEPS * 1e3)
+    out = {}
+    for name, ts in times.items():
+        med = sorted(ts)[len(ts) // 2]
+        out[name] = {"median_ms": med, "min_ms": min(ts), "max_ms": max(ts), "ms": ts,
+                     "rays_per_s": g_runner.cfg.train.batch_size / med * 1e3}
+        log(f"[window] {g_runner.cfg.general.expname} {name} step: median {med:.2f} ms "
+            f"(min {min(ts):.2f}, max {max(ts):.2f}; {TIMED_REPEATS} x {TIMED_STEPS} steps) = "
+            f"{out[name]['rays_per_s']:.0f} rays/s  [{card}]")
+    return out
+
+
+def profile_window(runner, card) -> dict:
+    """Device time and kernel count a step inside graph replays
+    (torch.profiler over one captured window of TIMED_STEPS), against the
+    host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scheds, rows, idxs = window_inputs(runner, TIMED_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        graphed_steps(runner, scheds, rows, idxs)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / TIMED_STEPS
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / TIMED_STEPS
+    count = sum(e.count for e in kern) / TIMED_STEPS
+    if busy == 0:
+        log("[window] the profiler saw no device time inside the replays: not measured")
+        return {"wall_ms": wall_ms, "busy_ms": None, "busy_share": None, "kernels": None}
+    log(f"[window] {runner.cfg.general.expname} replayed step under the profiler: {count:.0f} "
+        f"kernels, device busy {busy:.2f} of {wall_ms:.2f} ms (busy share "
+        f"{busy / wall_ms:.2f})  [{card}]")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms, "kernels": count}
+
+
+def check_window_tolerance(graphed: dict, run_to_run: dict) -> None:
+    """TOL_WINDOW, against the eager loop's own spread from run to run."""
+    if not (graphed["generators_equal"] and run_to_run["generators_equal"]):
+        raise AssertionError("[window] the runs consumed the generator differently")
+    if run_to_run["all_rows_bit_equal"] and run_to_run["params_max_rel"] == 0.0:
+        if not (graphed["all_rows_bit_equal"] and graphed["params_max_rel"] == 0.0):
+            raise AssertionError(f"[window] the eager loop repeats itself bit for bit, the "
+                                 f"graphed window differs from it: {graphed}")
+        return
+    for key in ("loss_max_rel", "params_max_rel"):
+        if graphed[key] > max(TOL_WINDOW, 10 * run_to_run[key]):
+            raise AssertionError(f"[window] graphed vs eager {key} {graphed[key]:.2e} over "
+                                 f"{TOL_WINDOW:.0e} and 10x the eager run-to-run "
+                                 f"{run_to_run[key]:.2e}")
+
+
+def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finetune: bool):
+    """[window]: WINDOW_STEPS iterations from ``ckpt`` through the graphed
+    window (its warm-up and capture included) and through the eager loop,
+    two runners on one start state and generator state; launch counts of the
+    graphed run (once a step for each kernel of ``on_path``); the compare;
+    then step times, the replayed step's device-busy share, and the graph
+    pool's memory."""
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    g_runner, e_runner, e2_runner = (Runner(cfg, device=dev, seed=seed, is_finetune=is_finetune)
+                                     for _ in range(3))
+    for r in (g_runner, e_runner, e2_runner):
+        r.load_checkpoint(ckpt)
+    scheds, rows, idxs = window_inputs(g_runner, WINDOW_STEPS)
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    graphed = graphed_steps(g_runner, scheds, rows, idxs)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    torch.cuda.empty_cache()  # what stays reserved is the graph's pool and the static buffers
+    memory = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "graph_pool_gib": (torch.cuda.memory_reserved() - reserved) / 2**30}
+    log(f"[window] {cfg.general.expname}: {WINDOW_STEPS} graphed steps (2 eager warm-up, the "
+        f"capture, {WINDOW_STEPS - 2} replays) in {first_s:.1f} s; launches {launches}; peak "
+        f"device memory {memory['peak_gib']:.2f} GiB; the graph's pool holds "
+        f"{memory['graph_pool_gib']:.2f} GiB")
+    if any(n != (WINDOW_STEPS if name in on_path else 0) for name, n in launches.items()):
+        raise AssertionError(f"[window] kernels {on_path} did not run once a graphed step: "
+                             f"{launches}")
+    eager = eager_steps(e_runner, scheds, rows, idxs)
+    eager2 = eager_steps(e2_runner, scheds, rows, idxs)
+    out = {"launches": launches, "memory": memory,
+           "graphed_vs_eager": differences(graphed, eager, g_runner, e_runner),
+           "eager_vs_eager": differences(eager2, eager, e2_runner, e_runner)}
+    for name in ("graphed_vs_eager", "eager_vs_eager"):
+        log(f"[window] {cfg.general.expname} {name} over {WINDOW_STEPS} steps: {out[name]}")
+    check_window_tolerance(out["graphed_vs_eager"], out["eager_vs_eager"])
+    del e2_runner
+    out["times"] = time_windows(g_runner, e_runner, card)
+    out["profile"] = profile_window(g_runner, card)
+    return out
+
+
 def grid_parity(runner):
     """The MeshUDF grid at 64³ on the card against the same parameters on
     the CPU."""
@@ -696,6 +903,7 @@ def check_mesh(runner, card):
                                    dist_threshold_ratio=5.0, timings=timings)
     total_s = time.time() - t0
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30  # the windows' graph pools included
     verts_w, faces = load_ply(path)
     sm = runner.dataset.scale_mats_np[0]
     verts = ((verts_w - sm[:3, 3][None]) / sm[0, 0]).astype(np.float32)
@@ -704,10 +912,12 @@ def check_mesh(runner, card):
         raise AssertionError(f"the {MESH_RES}³ mesh is empty or has a non-finite vertex")
     residual = float(np.abs(grid.query_udf_at(runner.params, ucfg, verts)).mean())
     out["extract"] = {"verts": len(verts), "faces": len(faces), "total_s": total_s,
-                      "peak_gib": peak, "mean_abs_udf": residual, **timings}
+                      "peak_gib": peak, "peak_reserved_gib": reserved, "mean_abs_udf": residual,
+                      **timings}
     log(f"[mesh] extract_udf_mesh {MESH_RES}³: {len(verts)} vertices, {len(faces)} faces in "
         f"{total_s:.1f} s (host clock: " + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items())
-        + f"); peak device memory {peak:.2f} GiB; mean |udf| at the vertices {residual:.2e} "
+        + f"); peak device memory {peak:.2f} GiB ({reserved:.2f} GiB reserved in all, the "
+        f"training windows' graph pools included); mean |udf| at the vertices {residual:.2e} "
         f"(limit voxel/2 = {voxel / 2:.2e})  [{card}]")
     if residual > voxel / 2:
         raise AssertionError("the extracted vertices do not sit on the zero level")
@@ -1103,32 +1313,16 @@ def bound_ms(nbytes: float, flops: float, tier: str) -> float:
 
 
 def steady_body(runner):
-    """The step body and schedule values of the runner's current iteration."""
+    """The eager step body and schedule values of the runner's current
+    iteration."""
     s = runner._schedules_at(runner.iter_step)
     return runner.step_body(s), dataclasses.asdict(s)
 
 
-def time_step(runner, card) -> float:
-    """Host-clock time of a steady training step, ended by a synchronize."""
-    body, sched = steady_body(runner)
-    run = lambda i: body(runner.params, runner.opt_state, runner.dataset.scene,
-                         i % runner.dataset.n_images, sched, runner.generator)
-    run(0)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for i in range(N_TIMED_STEPS):
-        run(i)
-    torch.cuda.synchronize()
-    step_ms = (time.time() - t0) / N_TIMED_STEPS * 1e3
-    log(f"[time] {runner.cfg.general.expname}: steady training step {step_ms:.2f} ms = "
-        f"{runner.cfg.train.batch_size / step_ms * 1e3:.0f} rays/s  [{card}]")
-    return step_ms
-
-
 def profile_step(runner, n_steps: int = 5, top: int = 14) -> dict:
-    """Device time by kernel over a few steady steps (torch.profiler), and
-    the share of the window the device was busy. Returns kernel name ->
-    (ms per step, launches per step)."""
+    """Device time by kernel over a few steady eager steps (torch.profiler),
+    and the share of them the device was busy. Returns kernel name -> (ms
+    per step, launches per step)."""
     from torch.profiler import ProfilerActivity, profile
 
     body, sched = steady_body(runner)
@@ -1273,6 +1467,21 @@ def main() -> int:
                                            ("K1", "K2", "K3"))
     check_finetune_rows(ft_rows)
 
+    # the graph-replayed window against the eager loop, from the stage-1
+    # checkpoint, in an experiment directory of its own
+    t0 = time.time()
+    window_common = dict(common, general__base_exp_dir=str(exp_dir / "window"))
+    window = {
+        "stage1": check_window(config_mod.load(str(CONF), **window_common), ckpt, dev, counters,
+                               ("K1", "K2"), card, seed=0, is_finetune=False),
+        "finetune": check_window(config_mod.load(str(FT_CONF), train__end_iter=FT_STEPS,
+                                                 **FT_SCHEDULE, **window_common),
+                                 ckpt, dev, counters, ("K1", "K2", "K3"), card, seed=1,
+                                 is_finetune=True)}
+    torch.cuda.empty_cache()
+    print(json.dumps({"window": window, "card": card}), flush=True)
+    log(f"[window] ok in {time.time() - t0:.1f} s")
+
     # tier "high" on both training paths: one window each from the stage-1
     # checkpoint, at full width, into an experiment directory of its own
     t0 = time.time()
@@ -1314,15 +1523,7 @@ def main() -> int:
     k3_val_times, k3_val_bytes, k3_val_flops = time_strip_sample(val["k3_inputs"], card)
     # after cuda_launches: a profile taken before it cost that count its launches
     profile_chunk(runner)
-    profiles = []
-    for r in (runner, ft_runner):
-        time_step(r, card)
-        profiles.append(profile_step(r))
-    profile_difference(*profiles)
-    torch.cuda.reset_peak_memory_stats()
-    time_step(ft_runner, card)
-    log(f"[memory] finetune step: peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    profile_difference(*(profile_step(r) for r in (runner, ft_runner)))
 
     tier = ucfg.fused_precision  # the main paths' tier
     by_path = lambda k: {"stage1": launches_stage1[k], "finetune": launches_ft[k],
@@ -1340,6 +1541,7 @@ def main() -> int:
             "replaces": f"neuraludf_tpu/ops/fused_distance.py:{line}",
             "launches": sum(by_path(k).values()),
             "launches_by_path": by_path(k),
+            "window_launches": {p: window[p]["launches"][k] for p in window},
             "checked_at": checked_k12 + ([f"{N_VAL_POINTS} points (a validation chunk, every "
                                           f"tier, forward)"] if k == "K1" else []),
             "max_abs_err": max(errors[(k, tier, "explicit", o)][0] for o in outs),
@@ -1371,6 +1573,7 @@ def main() -> int:
         "replaces": "neuraludf_tpu/ops/strip_sample.py:158",
         "launches": sum(by_path("K3").values()),
         "launches_by_path": by_path("K3"),
+        "window_launches": {p: window[p]["launches"]["K3"] for p in window},
         "checked_at": [f"{list(K3_SHAPE)} seeded positions (finetune shape)",
                        f"{list(K3_VAL_SHAPE)} a validation chunk's positions"],
         "max_abs_err": k3_errors["plain"],
@@ -1385,6 +1588,9 @@ def main() -> int:
             "plain_ms": k3_val_times["K3plain"], "library_ms": k3_val_times["K3library"],
             "bound_ms": bound_ms(k3_val_bytes, k3_val_flops, "highest")},
     })
+    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "neuraludf_tpu"))
+    if jax_modules:
+        raise AssertionError(f"the port imported JAX or the JAX package: {jax_modules[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -56,14 +56,13 @@ class TrainConfig:
     igr_ns_weight: float = 0.0
     mask_weight: float = 0.0
     sparse_weight: float = 0.0
-    # switches of the JAX trainer, kept so its confs and checkpoints load;
-    # the port reads freeze_variance only
+    # blending iterations in graph-replayed windows (else one at a time)
     blend_scan_window: bool = True
-    stall_warn_s: float = 600.0
+    stall_warn_s: float = 600.0  # StallWatchdog warning period; 0 turns it off
     incremental_mesh: bool = False
     freeze_variance: bool = False  # keep variance untrainable all run
-    scan_unroll: int = 1
-    flat_adam: bool = False
+    scan_unroll: int = 1  # step bodies a captured window graph holds
+    flat_adam: bool = False  # one Adam update over the concatenated parameters
 
 @dataclass(frozen=True)
 class ColorLossConfig:

@@ -1565,6 +1565,26 @@ int fill_items(const Net& net, const SweepArgs& a, WItem* items) {
 
 }  // namespace
 
+// The sweeps' dynamic shared memory limits, set once per device (at the
+// first launch, which precedes any graph capture of it), not at every launch.
+static cudaError_t set_smem_attributes() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(sweep_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SWEEP_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sweep_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SWEEP_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)WGRAD_SMEM);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
 extern "C" {
 
 // Bytes of scratch one call needs at tier (TIER_HIGHEST, TIER_DEFAULT,
@@ -1608,8 +1628,7 @@ int fd_forward(const void* x, const void* w, const void* b, int n_layers, const 
   a.n_tiles = fs.n_tiles;
   a.udf = (float*)udf; a.feat = (float*)feat; a.grad = (float*)grad;
   a.spill = fs.spill;
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SWEEP_SMEM);
+  cudaError_t err = set_smem_attributes();
   if (err != cudaSuccess) return (int)err;
   sweep_kernel<false><<<fs.grid, FT, SWEEP_SMEM, st>>>(a);
   return (int)cudaGetLastError();
@@ -1645,8 +1664,7 @@ int fd_backward(const void* x, const void* w, const void* b, int n_layers, const
   a.ubar = (const float*)ubar; a.fbar = (const float*)fbar; a.gbar = (const float*)gbar;
   a.xbar = (float*)xbar; a.bpart = fs.bpart;
   a.xbuf = fs.xbuf; a.gbuf = fs.gbuf; a.spill = fs.spill;
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SWEEP_SMEM);
+  cudaError_t err = set_smem_attributes();
   if (err != cudaSuccess) return (int)err;
   sweep_kernel<true><<<fs.grid, FT, SWEEP_SMEM, st>>>(a);
 
@@ -1655,9 +1673,6 @@ int fd_backward(const void* x, const void* w, const void* b, int n_layers, const
   g.nx_slots = fs.nx_slots; g.ng_slots = fs.ng_slots; g.n_tiles = fs.n_tiles;
   const int n_items = fill_items(net, a, g.item);
   if (n_items < 0) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             WGRAD_SMEM);
-  if (err != cudaSuccess) return (int)err;
   wgrad_kernel<<<dim3(n_items, splits), FT, WGRAD_SMEM, st>>>(g);
   reduce_kernel<<<(unsigned)((net.w_total + 255) / 256), 256, 0, st>>>(fs.part, splits,
                                                                        net.w_total, (float*)wbar);

@@ -7,7 +7,10 @@
 c2w poses, and each view's nearest neighbours (``ref_src_pairs``).
 ``sample_random_rays`` draws a training batch from one view; its pixel draws
 come from a ``torch.Generator`` or are given as ``px, py``. ``ref_src_info``
-gathers the source views that the blending finetune warps into. ``rays_at``
+gathers the source views that the blending finetune warps into. Both take
+the view as an ``int`` or as a 0-dim integer tensor on the scene's device,
+which they read by a gather (no host read: a captured step graph takes its
+view from device memory). ``rays_at``
 and the ``Dataset.gen_*`` methods make the full-frame, single-pixel and
 in-between-pose rays of the validation renders.
 
@@ -17,9 +20,10 @@ the camera centre.
 
 from __future__ import annotations
 
+import functools
 import os
 from glob import glob
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -32,6 +36,21 @@ from .image import resize
 from .png import read_png
 
 Scene = Dict[str, torch.Tensor]
+ViewIndex = Union[int, torch.Tensor]
+
+
+def view_of(t: torch.Tensor, img_idx: ViewIndex) -> torch.Tensor:
+    """``t[img_idx]`` for an int, or for a 0-dim integer tensor by
+    ``index_select`` (indexing with a tensor scalar reads it on the host)."""
+    if isinstance(img_idx, torch.Tensor):
+        return t.index_select(0, img_idx.reshape(1)).squeeze(0)
+    return t[img_idx]
+
+
+@functools.lru_cache(maxsize=None)
+def patch_offsets(h_patch_size: int, device: torch.device) -> torch.Tensor:
+    """``build_patch_offset`` as a tensor on ``device``, made once."""
+    return torch.as_tensor(build_patch_offset(h_patch_size), device=device)
 
 
 def near_far_from_sphere(rays_o: torch.Tensor, rays_d: torch.Tensor):
@@ -58,14 +77,14 @@ def _randint(high: int, n: int, generator: torch.Generator, device) -> torch.Ten
                          device=generator.device).to(device)
 
 
-def _draw_pixels(scene: Scene, batch_size: int, generator: torch.Generator):
+def draw_pixels(scene: Scene, batch_size: int, generator: torch.Generator):
     """Integer pixel draws, uniform over the image."""
     _, H, W, _ = scene["images"].shape
     dev = scene["images"].device
     return _randint(W, batch_size, generator, dev), _randint(H, batch_size, generator, dev)
 
 
-def sample_random_rays(scene: Scene, img_idx: int, batch_size: int, *,
+def sample_random_rays(scene: Scene, img_idx: ViewIndex, batch_size: int, *,
                        generator: Optional[torch.Generator] = None,
                        px: Optional[torch.Tensor] = None,
                        py: Optional[torch.Tensor] = None,
@@ -77,23 +96,23 @@ def sample_random_rays(scene: Scene, img_idx: int, batch_size: int, *,
     truth patch around every pixel is cropped too (zeros outside the image)."""
     _, H, W, _ = scene["images"].shape
     if px is None or py is None:
-        px, py = _draw_pixels(scene, batch_size, generator)
+        px, py = draw_pixels(scene, batch_size, generator)
     dev = scene["images"].device
     px, py = px.to(dev).long(), py.to(dev).long()
 
-    image = scene["images"][img_idx]
-    mask_img = scene["masks"][img_idx]
+    image = view_of(scene["images"], img_idx)
+    mask_img = view_of(scene["masks"], img_idx)
     color = image[py, px]  # [B, 3]
     mask = (mask_img[py, px] > 0).to(torch.float32)
     pxf, pyf = px.to(torch.float32), py.to(torch.float32)
-    rays_o, rays_v = pixels_to_rays(pxf, pyf, scene["intrinsics_inv"][img_idx],
-                                    scene["poses"][img_idx])
+    rays_o, rays_v = pixels_to_rays(pxf, pyf, view_of(scene["intrinsics_inv"], img_idx),
+                                    view_of(scene["poses"], img_idx))
     rays = torch.cat([rays_o, rays_v, color, mask[:, :1]], dim=-1)
     ndc_uv = torch.stack([2.0 * pxf / (W - 1) - 1.0, 2.0 * pyf / (H - 1) - 1.0], dim=-1)
 
     patch_color = patch_mask = None
     if crop_patch:
-        offsets = torch.as_tensor(build_patch_offset(h_patch_size), device=dev)  # [Npx, 2]
+        offsets = patch_offsets(h_patch_size, dev)  # [Npx, 2]
         grid = torch.stack([pxf, pyf], dim=-1)[:, None, :] + offsets[None]  # [B, Npx, 2]
         grid_uv = torch.stack([2.0 * grid[..., 0] / (W - 1) - 1.0,
                                2.0 * grid[..., 1] / (H - 1) - 1.0], dim=-1)
@@ -118,15 +137,15 @@ def _pixel_grid(H: int, W: int, level: int, device):
     return torch.meshgrid(tx, ty, indexing="xy")  # [H', W'] each
 
 
-def ref_src_info(scene: Scene, img_idx: int, num: int = 8):
+def ref_src_info(scene: Scene, img_idx: ViewIndex, num: int = 8):
     """Blending inputs of a reference view: its c2w, and the c2ws, intrinsics
     and images [V, 3, H, W] of its ``num`` nearest source views (from
     ``scene["ref_src_pairs"]``). The images are a channel-first view of a
     channel-last copy, the layout ``ops.strip_sample`` reads."""
-    src_idx = scene["ref_src_pairs"][img_idx, :num]
+    src_idx = view_of(scene["ref_src_pairs"], img_idx)[:num]
     src_images = scene["images"][src_idx].permute(0, 3, 1, 2)
-    return (scene["poses"][img_idx], scene["poses"][src_idx], scene["intrinsics"][src_idx],
-            src_images)
+    return (view_of(scene["poses"], img_idx), scene["poses"][src_idx],
+            scene["intrinsics"][src_idx], src_images)
 
 
 class Dataset:

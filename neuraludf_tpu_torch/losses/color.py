@@ -4,21 +4,31 @@ with ranked outlier dropping, PSNR and the mask BCE (counterpart of
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ..numerics import clip
 from .patch_metric import gaussian_window, ncc_error, ssim_error
 
+Scalar = Union[float, torch.Tensor]
+
 
 @dataclass
 class ColorLossWeights:
-    color_base: float
-    color: float
-    color_pixel: float
-    color_patch: float
+    """Floats, or 0-dim tensors of the step's schedule row."""
+    color_base: Scalar
+    color: Scalar
+    color_pixel: Scalar
+    color_patch: Scalar
+
+
+@functools.lru_cache(maxsize=None)
+def _window(size: int, device: torch.device) -> torch.Tensor:
+    """The SSIM/NCC Gaussian window on ``device``, made once."""
+    return torch.as_tensor(gaussian_window(size), device=device)
 
 
 def pixel_l1(pred: torch.Tensor, gt: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -41,7 +51,7 @@ def patch_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, *,
     elif loss_type == "ssd":
         error = torch.sum(torch.mean((pred - gt) ** 2, dim=-1), dim=-1)
     else:
-        window = torch.as_tensor(gaussian_window(2 * h_patch_size + 1), device=pred.device)
+        window = _window(2 * h_patch_size + 1, pred.device)
         error = (ssim_error if loss_type == "ssim" else ncc_error)(pred, gt, window)
 
     error = error * mask

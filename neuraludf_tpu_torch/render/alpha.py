@@ -7,7 +7,7 @@ from typing import Optional
 
 import torch
 
-from ..numerics import clip
+from ..numerics import clip, cumprod_nonzero
 
 
 def udf2logistic(udf, inv_s, gamma=20.0, abs_cos_val=1.0, cos_anneal_ratio=None):
@@ -53,7 +53,7 @@ def sdf2alpha(sdf, true_cos, dists, inv_s, cos_anneal_ratio=None,
 
 def _exclusive_cumprod(factor: torch.Tensor) -> torch.Tensor:
     ones = torch.ones_like(factor[:, :1])
-    return torch.cumprod(torch.cat([ones, factor], dim=-1), dim=-1)[:, :-1]
+    return cumprod_nonzero(torch.cat([ones, factor], dim=-1))[:, :-1]
 
 
 def transmittance_weights(alpha: torch.Tensor) -> torch.Tensor:

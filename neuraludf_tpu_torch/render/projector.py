@@ -66,6 +66,14 @@ class PatchProjector:
         self.h_patch_size = h_patch_size
         self.offsets = build_patch_offset(h_patch_size)  # [Npx, 2] numpy
         self.plane_dist_thresh = 0.001
+        self._offsets_on = {}
+
+    def offsets_on(self, dtype, device) -> torch.Tensor:
+        """The patch offsets as a tensor, made once per dtype and device."""
+        key = (dtype, torch.device(device))
+        if key not in self._offsets_on:
+            self._offsets_on[key] = torch.as_tensor(self.offsets, dtype=dtype, device=device)
+        return self._offsets_on[key]
 
     def pixel_warp_positions(self, pts, intrinsics, w2cs, size_hw):
         """pts [B, S, 3] -> (gx, gy) [V, B, S] absolute pixels and valid
@@ -96,7 +104,7 @@ class PatchProjector:
             normals = normals.detach()
         B, S, _ = pts.shape
         V = src_intrinsics.shape[0]
-        offsets = torch.as_tensor(self.offsets, dtype=pts.dtype, device=pts.device)
+        offsets = self.offsets_on(pts.dtype, pts.device)
         npx = offsets.shape[0]
 
         uv_px = torch.stack([(uv[:, 0] + 1.0) * 0.5 * (sizeW - 1),

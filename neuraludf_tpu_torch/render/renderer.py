@@ -35,7 +35,7 @@ import torch
 
 from ..config import ModelConfig
 from ..nets import fields
-from ..numerics import clip
+from ..numerics import clip, cumprod_nonzero
 from ..ops.strip_sample import strip_sample
 from .alpha import sdf2alpha, transmittance_weights, udf2logistic
 from .projector import PatchProjector, camera_inverse
@@ -57,7 +57,9 @@ class RenderOptions:
     patch_blending: bool = False
 
 
-def _uniform(shape, generator: Optional[torch.Generator], device, dtype) -> torch.Tensor:
+def uniform_draw(shape, generator: Optional[torch.Generator], device, dtype) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` from ``generator``, on its device, moved to
+    ``device``."""
     if generator is None:
         raise ValueError("a random draw is needed: pass it in `noise` or give a generator")
     return torch.rand(shape, generator=generator, device=generator.device, dtype=dtype).to(device)
@@ -225,8 +227,8 @@ class UDFRenderer:
         vis_mask = torch.cat([vis_mask[:, 1:], torch.ones_like(vis_mask[:, :1])], -1)
 
         factor = clip(1.0 - alpha_occ + flip_saturation * vis_mask, 0.0, 1.0) + 1e-7
-        vis_prob = torch.cumprod(
-            torch.cat([torch.ones_like(factor[:, :1]), factor], -1), -1)[:, :-1]
+        vis_prob = cumprod_nonzero(
+            torch.cat([torch.ones_like(factor[:, :1]), factor], -1))[:, :-1]
         vis_prob = clip(vis_prob, 0.0, 1.0)
 
         neg_abs_cos = -torch.abs(true_cos)
@@ -405,8 +407,8 @@ class UDFRenderer:
         noise = noise or {}
         batch = rays_o.shape[0]
         dtype, dev = rays_o.dtype, rays_o.device
-        near = torch.as_tensor(near, dtype=dtype, device=dev).expand(batch, 1)
-        far = torch.as_tensor(far, dtype=dtype, device=dev).expand(batch, 1)
+        near, far = (v.to(dtype).expand(batch, 1) if isinstance(v, torch.Tensor)
+                     else torch.full((batch, 1), v, dtype=dtype, device=dev) for v in (near, far))
 
         sample_dist = torch.mean((far - near) / rcfg.n_samples)
         t = torch.linspace(0.0, 1.0, rcfg.n_samples, dtype=dtype, device=dev)
@@ -420,7 +422,7 @@ class UDFRenderer:
         if opts.perturb and rcfg.perturb > 0:
             t_rand = noise.get("t_rand")
             if t_rand is None:
-                t_rand = _uniform((batch, 1), generator, dev, dtype) - 0.5
+                t_rand = uniform_draw((batch, 1), generator, dev, dtype) - 0.5
             z_vals = z_vals + t_rand * 2.0 / rcfg.n_samples
             if rcfg.n_outside > 0:
                 mids = 0.5 * (z_vals_outside[1:] + z_vals_outside[:-1])
@@ -428,7 +430,7 @@ class UDFRenderer:
                 lower = torch.cat([z_vals_outside[:1], mids])
                 t_r = noise.get("t_r")
                 if t_r is None:
-                    t_r = _uniform(z_vals_outside.shape, generator, dev, dtype)
+                    t_r = uniform_draw(z_vals_outside.shape, generator, dev, dtype)
                 z_vals_outside = lower + (upper - lower) * t_r
 
         if rcfg.n_outside > 0:

@@ -55,7 +55,10 @@ def _ray_points(rays_o, rays_d, z_vals):
 
 def _dists_with_tail(z_vals, sample_dist):
     d = z_vals[..., 1:] - z_vals[..., :-1]
-    tail = torch.as_tensor(sample_dist, dtype=d.dtype, device=d.device).expand(d[..., :1].shape)
+    if isinstance(sample_dist, torch.Tensor):
+        tail = sample_dist.to(d.dtype).expand(d[..., :1].shape)
+    else:
+        tail = torch.full_like(d[..., :1], sample_dist)
     return torch.cat([d, tail], dim=-1)
 
 

@@ -2,10 +2,16 @@
 ``neuraludf_tpu/train/runner.py``).
 
 The host computes the schedules, drives the beta/variance trainability
-state machine, logs, and saves checkpoints; each iteration runs eagerly on
-the runner's device. Metrics of a whole window of iterations move to the
-host in one transfer, and every iteration's scalars go to
-``<exp>/logs/metrics.jsonl``. Every ``val_freq`` iterations the runner
+state machine, logs, and saves checkpoints. Training runs in windows of
+iterations, as the JAX runner's: a full window whose iterations share one
+step body goes through ``step.build_train_window`` (on a CUDA device,
+replays of a captured CUDA graph); a window where blending switches on, a
+shorter last window, and blending windows without
+``train.blend_scan_window`` step one eager iteration at a time. Either way
+a window's schedules and views go to the device at once, its metrics come
+back in one transfer, and every iteration's scalars go to
+``<exp>/logs/metrics.jsonl``; a ``StallWatchdog`` warns when no window ends
+for ``train.stall_warn_s`` seconds. Every ``val_freq`` iterations the runner
 renders a validation view (``validate``: colour, pixel-blended colour,
 normals, depth), every ``val_mesh_freq`` iterations it writes the classic
 and the MeshUDF mesh of the field (``validate_mesh``, ``extract_udf_mesh``),
@@ -42,10 +48,11 @@ from ..render.projector import camera_inverse
 from ..render.renderer import RenderOptions, UDFRenderer
 from ..utils.hdf5 import write_dataset
 from ..utils.plot import plot_curves
+from ..utils.watchdog import StallWatchdog
 from . import schedules as sched_mod
 from .colormap import colorize_depth
 from .optim import init_adam_state
-from .step import METRIC_KEYS, build_step_body
+from .step import METRIC_KEYS, build_step_body, build_train_window
 
 log = logging.getLogger(__name__)
 
@@ -112,6 +119,7 @@ class Runner:
                                    and not cfg.train.freeze_variance)
         self._beta_flag = True
         self._step_bodies = {}
+        self._window_fns = {}  # (blending, window, unroll) -> step.TrainWindow
         self._mesh_caches = {}  # resolution -> incremental extraction cache
 
         if is_continue:
@@ -178,6 +186,7 @@ class Runner:
         convert.check_like(payload["params"], self.params)
         self.params = payload["params"]
         self.opt_state = payload["opt_state"]
+        self._window_fns = {}  # their graphs hold the tensors just replaced
         self.iter_step = payload["iter_step"]
         self.beta_trainable = bool(payload.get("beta_trainable", self.beta_trainable))
         self.variance_trainable = (bool(payload.get("variance_trainable", True))
@@ -193,7 +202,7 @@ class Runner:
     # ------------------------------------------------------------------
 
     def _window_size(self) -> int:
-        """Largest metric-flush window dividing every periodic frequency."""
+        """Largest window dividing every periodic frequency."""
         t = self.cfg.train
         g = math.gcd(math.gcd(t.report_freq, t.save_freq), math.gcd(t.val_freq, t.val_mesh_freq))
         for k in (50, 40, 25, 20, 10, 8, 5, 4, 2, 1):
@@ -214,11 +223,25 @@ class Runner:
         """The step body of an iteration with schedule values ``s``: with the
         blending branches where a blending weight is positive, without them
         otherwise. One body per mode, built at first use."""
-        blending = s.color_pixel_weight > 0 or s.color_patch_weight > 0
+        blending = sched_mod.is_blending(s)
         if blending not in self._step_bodies:
             self._step_bodies[blending] = build_step_body(self.cfg, self.renderer,
                                                           blending=blending)
         return self._step_bodies[blending]
+
+    def _get_window_fn(self, blending: bool, window: int):
+        """The window of ``window`` iterations of one body, built (and on a
+        CUDA device captured) at first use; ``train.scan_unroll`` step bodies
+        a graph, lowered to a divisor of the window."""
+        unroll = max(1, self.cfg.train.scan_unroll)
+        while window % unroll != 0:
+            unroll -= 1
+        key = (blending, window, unroll)
+        if key not in self._window_fns:
+            self._window_fns[key] = build_train_window(self.cfg, self.renderer,
+                                                       blending=blending, window=window,
+                                                       unroll=unroll)
+        return self._window_fns[key]
 
     def train(self):
         n_img = self.dataset.n_images
@@ -228,32 +251,61 @@ class Runner:
         for _ in range(self.iter_step // n_img):
             image_perm = perm_rng.permutation(n_img)
 
+        def next_img_indices(k: int) -> np.ndarray:
+            nonlocal image_perm
+            out = np.empty((k,), np.int64)
+            for j in range(k):
+                step = self.iter_step + j
+                out[j] = image_perm[step % n_img]
+                if (step + 1) % n_img == 0:
+                    image_perm = perm_rng.permutation(n_img)
+            return out
+
         window = self._window_size()
         log_dir = os.path.join(self.base_exp_dir, "logs")
         os.makedirs(log_dir, exist_ok=True)
         t_start = time.time()
-        with open(os.path.join(log_dir, "metrics.jsonl"), "a") as metrics_log:
-            while self.iter_step < self.end_iter:
-                k = min(window, self.end_iter - self.iter_step)
-                rows = []
-                for _ in range(k):
-                    s = self._schedules_at(self.iter_step)
-                    body = self.step_body(s)
-                    img_idx = int(image_perm[self.iter_step % n_img])
-                    if (self.iter_step + 1) % n_img == 0:
-                        image_perm = perm_rng.permutation(n_img)
-                    m = body(self.params, self.opt_state, self.dataset.scene, img_idx,
-                             dataclasses.asdict(s), self.generator)
-                    rows.append(torch.stack([m[name] for name in METRIC_KEYS]))
-                    self.iter_step += 1
-                mat = torch.stack(rows).cpu().numpy()  # one [k, M] transfer
-                for j in range(k):
-                    it = self.iter_step - k + 1 + j
-                    m = dict(zip(METRIC_KEYS, mat[j].tolist()))
-                    metrics_log.write(json.dumps({"iter": it, **m}) + "\n")
-                    self._post_step_host(it, m, t_start)
-                metrics_log.flush()
-                self._periodic_actions(k)
+        watchdog = StallWatchdog(self.cfg.train.stall_warn_s,
+                                 tag_fn=lambda: f"iter {self.iter_step}").start()
+        try:
+            with open(os.path.join(log_dir, "metrics.jsonl"), "a") as metrics_log:
+                while self.iter_step < self.end_iter:
+                    k = min(window, self.end_iter - self.iter_step)
+                    mat = self._train_window(k, window, next_img_indices(k)).cpu().numpy()
+                    watchdog.beat()
+                    for j in range(k):
+                        it = self.iter_step - k + 1 + j
+                        m = dict(zip(METRIC_KEYS, mat[j].tolist()))
+                        metrics_log.write(json.dumps({"iter": it, **m}) + "\n")
+                        self._post_step_host(it, m, t_start)
+                    metrics_log.flush()
+                    self._periodic_actions(k)
+        finally:
+            watchdog.stop()
+
+    def _train_window(self, k: int, window: int, img_idxs: np.ndarray) -> torch.Tensor:
+        """k iterations from iter_step on: their metric rows [k, M] on the
+        device. A full window of one body is a ``build_train_window`` call;
+        a boundary window (blending switches on within it), a shorter last
+        window, and a blending window without ``blend_scan_window`` step one
+        iteration at a time, as the JAX runner's do."""
+        scheds = [self._schedules_at(self.iter_step + j) for j in range(k)]
+        first, last = sched_mod.is_blending(scheds[0]), sched_mod.is_blending(scheds[-1])
+        rows = torch.from_numpy(sched_mod.schedule_rows(scheds)).to(self.device)
+        idxs = torch.from_numpy(img_idxs).to(self.device)
+        scene = self.dataset.scene
+        if first == last and k == window and (self.cfg.train.blend_scan_window or not first):
+            window_fn = self._get_window_fn(first, k)
+            mat = window_fn(self.params, self.opt_state, scene, idxs, self.generator, rows)
+            self.iter_step += k
+            return mat
+        out = []
+        for j in range(k):
+            m = self.step_body(scheds[j])(self.params, self.opt_state, scene, idxs[j], rows[j],
+                                          self.generator)
+            out.append(torch.stack([m[name] for name in METRIC_KEYS]))
+            self.iter_step += 1
+        return torch.stack(out)
 
     def _periodic_actions(self, k: int):
         """The actions whose frequency has a multiple in the last window of k

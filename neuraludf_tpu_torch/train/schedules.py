@@ -1,15 +1,19 @@
 """Host-side training schedules (pure functions of iter_step).
 
-Computed on host each step and fed to the jitted train step as traced
-scalars, so no schedule change ever retriggers compilation.
+Computed on the host for each step and handed to the step body as one f32
+row of ``SCHEDULE_KEYS`` (``schedule_rows`` stacks a window's rows), so
+that a captured step graph reads every schedule value from device memory
+and none is baked in at capture.
 (ref: exp_runner_blending.py:167-251)
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import astuple, dataclass, fields
+from typing import Dict, Sequence
 
 import numpy as np
+import torch
 
 from ..config import TrainConfig
 
@@ -81,7 +85,7 @@ def regularization_weights(step: int, cfg: TrainConfig) -> tuple:
 
 @dataclass
 class StepSchedules:
-    """Everything the jitted step consumes as traced scalars."""
+    """Everything the step body reads from its schedule row."""
     lr_main: float
     lr_geo: float
     cos_anneal_ratio: float
@@ -142,3 +146,24 @@ def compute_step_schedules(
         beta_trainable=1.0 if beta_trainable else 0.0,
         variance_trainable=1.0 if variance_trainable else 0.0,
     )
+
+
+SCHEDULE_KEYS = [f.name for f in fields(StepSchedules)]
+
+
+def schedule_rows(scheds: Sequence[StepSchedules]) -> np.ndarray:
+    """[k, len(SCHEDULE_KEYS)] f32: one row a step, the counterpart of the
+    stacked schedule arrays of the JAX window."""
+    return np.asarray([astuple(s) for s in scheds], np.float32).reshape(
+        len(scheds), len(SCHEDULE_KEYS))
+
+
+def unpack_row(row: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """name -> 0-dim view of ``row`` [len(SCHEDULE_KEYS)]: the values stay in
+    device memory, so a graph captured over them reads each replay's row."""
+    return {name: row[i] for i, name in enumerate(SCHEDULE_KEYS)}
+
+
+def is_blending(s: StepSchedules) -> bool:
+    """Whether a step with these schedules runs the blending branches."""
+    return s.color_pixel_weight > 0 or s.color_patch_weight > 0

@@ -33,6 +33,10 @@ that runs at several tiers can share a card:
     python3 scripts/torch_sphere_quality.py --iters 2500 --stage 2500 \
         --fused_precision high --out exp/quality/high.json
 
+``--seed N`` passes ``--seed N`` to the CLI (the initialisation and the
+draws of the run) and, unless it is 0, trains into an experiment directory
+of its own (tag ``seed<N>``), so that several seeds can share a card.
+
 After training it also reads the field of the newest checkpoint along 256
 fixed directions at radii 0 to 1.2 (``radial``: the minimum, median and
 maximum UDF at each radius; the sphere's radius is 0.5) and keeps the last
@@ -96,20 +100,22 @@ def exact_sphere_mesh(path, resolution: int) -> str:
     return export_ply(path, verts * (2.0 / (resolution - 1)) - 1.0, faces)
 
 
-def tier_conf(base: str, precision: str, core: str) -> tuple:
+def tier_conf(base: str, precision: str, core: str, seed: int = 0) -> tuple:
     """(path, tag) of a copy of ``base`` whose udf_network runs the fused
-    kernels at ``precision`` / ``core`` and trains into its own experiment
-    directory; ``base`` itself when neither is given."""
-    if not precision and not core:
+    kernels at ``precision`` / ``core`` and that trains into an experiment
+    directory of its own (also for a seed other than 0); ``base`` itself
+    when none of them is given."""
+    if not precision and not core and not seed:
         return base, ""
-    tag = "_".join(t for t in (precision, f"core_{core}" if core else "") if t)
+    tag = "_".join(t for t in (precision, f"core_{core}" if core else "",
+                               f"seed{seed}" if seed else "") if t)
     text = open(base).read()
     keys = "".join(f"\n    {k} = {v}" for k, v in (("fused_precision", precision),
                                                        ("fused_core", core)) if v)
     text, n = re.subn(r"udf_network\s*\{", lambda m: m.group(0) + keys, text, count=1)
     text, m = re.subn(r"base_exp_dir\s*=\s*\./exp/udf/synthetic/",
                       f"base_exp_dir = ./exp/udf/synthetic_{tag}/", text, count=1)
-    if n != 1 or m != 1:
+    if (keys and n != 1) or m != 1:
         raise ValueError(f"{base}: no udf_network block or base_exp_dir to set")
     path = os.path.join("exp", "confs", f"synthetic_smoke_{tag}.conf")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -149,6 +155,7 @@ def main() -> int:
     p.add_argument("--mesh_dir", default="", help="where the closing mesh is copied")
     p.add_argument("--fused_precision", default="", choices=["", "default", "high", "highest"])
     p.add_argument("--fused_core", default="", choices=["", "auto", "on", "off"])
+    p.add_argument("--seed", type=int, default=0, help="the CLI's --seed")
     args = p.parse_args()
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)  # the configuration's paths are relative to the checkout
@@ -190,8 +197,9 @@ def main() -> int:
     if not os.path.isfile(os.path.join(scene, "cameras.npz")):
         generate_scene(scene, kind="sphere", n_views=16, H=600, W=800)
 
-    conf, tag = tier_conf("confs/synthetic_smoke.conf", args.fused_precision, args.fused_core)
-    base = ["--conf", conf, "--case", "sphere", "--is_continue"]
+    conf, tag = tier_conf("confs/synthetic_smoke.conf", args.fused_precision, args.fused_core,
+                          args.seed)
+    base = ["--conf", conf, "--case", "sphere", "--is_continue", "--seed", str(args.seed)]
     t0, longest, done, stages = time.time(), 0.0, 0, []
     while done < args.iters and time.time() - t0 + 1.1 * longest < args.budget_s:
         t_stage = time.time()
@@ -210,7 +218,7 @@ def main() -> int:
         last = json.loads(f.readlines()[-1])
     ckpt = os.path.join(exp, "checkpoints", sorted(os.listdir(os.path.join(exp, "checkpoints")))[-1])
     row = {"iters": done, "resolution": args.resolution, "stages_s": stages, "card": card,
-           "conf": conf, "fused_precision": args.fused_precision or "conf",
+           "conf": conf, "seed": args.seed, "fused_precision": args.fused_precision or "conf",
            "fused_core": args.fused_core or "conf", "mesh_path": mesh, "last_metrics": last,
            "radial_ckpt": os.path.basename(ckpt), "radial": radial_profile(conf, ckpt)}
     return emit(row if args.no_score else {**row, **scores(mesh)})

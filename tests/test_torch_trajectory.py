@@ -44,7 +44,9 @@ from neuraludf_tpu_torch import config as tconfig
 from neuraludf_tpu_torch import convert
 from neuraludf_tpu_torch.nets import fields as tf
 from neuraludf_tpu_torch.train import runner as trunner_mod
+from neuraludf_tpu_torch.train import schedules
 from neuraludf_tpu_torch.train.optim import init_adam_state
+from neuraludf_tpu_torch.train.step import METRIC_KEYS
 from test_torch_step import SAMPLING, jax_noise, raw_config, scene_dir  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
@@ -111,39 +113,66 @@ def jax_trajectory(jcfg, params_j, keys, probe_at=PROBE_AT):
 
 
 def port_trajectory(tcfg, params_j, keys, n_img, h, w, probe_at=PROBE_AT):
-    """Runner.train of the port for N_STEPS from the converted JAX
-    parameters, each step on the draws of its JAX key."""
+    """Runner.train of the port for len(keys) steps from the converted JAX
+    parameters, each step on the draws of its JAX key: its windows
+    (``Runner._get_window_fn``) take them as their ``noise``, and its single
+    steps (boundary and last windows, ``Runner.step_body``) likewise. The
+    probe points are read after the window that ends at each of
+    ``probe_at``."""
     runner = trunner_mod.Runner(tcfg, device="cpu", seed=0)
     runner.params = convert.params_from_jax(jax.tree_util.tree_map(np.asarray, params_j))
     runner.opt_state = init_adam_state(runner.params)
     pts = torch.tensor(probe_points())
     out = {"sched": [], "img": [], "loss": [], "udf": {}, "stats": []}
-    step_body = runner.step_body
+    noise_at = lambda it: jax_noise(keys[it], tcfg.train.batch_size, h, w,
+                                    tcfg.model.udf_renderer.n_outside)
+
+    def record(sched_row, img_idx, metrics):
+        out["sched"].append({k: float(v) for k, v in schedules.unpack_row(sched_row).items()})
+        out["img"].append(int(img_idx))
+        out["loss"].append(float(metrics[METRIC_KEYS.index("loss")]))
+        out["stats"].append({k: float(metrics[METRIC_KEYS.index(k)]) for k in STATS})
+
+    def probe():
+        if len(out["loss"]) in probe_at:
+            with torch.no_grad():
+                out["udf"][len(out["loss"])] = tf.distance_field_apply(
+                    runner.params["udf"], pts, tcfg.model.udf_network)[:, 0].numpy()
+
+    get_window_fn, step_body = runner._get_window_fn, runner.step_body
+
+    def recording_window_fn(blending, k):
+        window_fn = get_window_fn(blending, k)
+
+        def run(params, opt_state, scene, img_idxs, generator, scheds):
+            first = len(out["loss"])
+            rows = window_fn(params, opt_state, scene, img_idxs, generator, scheds,
+                             noise=[noise_at(first + j) for j in range(k)])
+            for j in range(k):
+                record(scheds[j], img_idxs[j], rows[j])
+            probe()
+            return rows
+
+        return run
 
     def recording_body(s):
         body = step_body(s)
 
         def run(params, opt_state, scene, img_idx, sched, generator):
-            it = len(out["loss"])
-            noise = jax_noise(keys[it], tcfg.train.batch_size, h, w,
-                              tcfg.model.udf_renderer.n_outside)
-            m = body(params, opt_state, scene, img_idx, sched, noise=noise)
-            out["sched"].append(dict(sched))
-            out["img"].append(int(img_idx))
-            out["loss"].append(float(m["loss"]))
-            out["stats"].append({k: float(m[k]) for k in STATS})
-            if it + 1 in probe_at:
-                with torch.no_grad():
-                    out["udf"][it + 1] = tf.distance_field_apply(
-                        params["udf"], pts, tcfg.model.udf_network)[:, 0].numpy()
+            m = body(params, opt_state, scene, img_idx, sched,
+                     noise=noise_at(len(out["loss"])))
+            record(sched, img_idx, torch.stack([m[k] for k in METRIC_KEYS]))
+            probe()
             return m
 
         return run
 
+    runner._get_window_fn = recording_window_fn
     runner.step_body = recording_body
     runner.train()
     assert runner.iter_step == len(keys) == len(out["loss"])
     assert n_img == runner.dataset.n_images
+    assert set(out["udf"]) == set(probe_at)
     return out
 
 
