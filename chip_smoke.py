@@ -69,6 +69,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
     timed); ``validate_novel_image``, ``visualize_one_ray`` and ``save_hdf5``
     once each; 50 more training steps with ``val_freq`` 50, which must write
     their validation image;
+11a. ``[multi_scan]``: ``MultiScanRunner.train`` of 4 stage-1 scans of the
+    sphere (seeds 0-3) for one graphed window of 50 iterations, then of 2
+    finetune scans resumed from the stage-1 checkpoint, K3 in each (K1 = K2
+    = 50 S, K3 = 50 S in the finetune); each scan's metric rows, parameters,
+    optimizer state and generator against a single-scan Runner(seed + i)
+    through its graphed window on scan i's views, bit for bit; then 5 x 20
+    timed multi-scan iterations at S = 1, 2, 4, 8 (the scans as branches on
+    side streams of one graph): ms an iteration against S x the single
+    graphed step of ``[window]``, scan-steps/s, S x the kernel time of one
+    scan's iteration (from the profile at S = 1) over the timed iteration,
+    the kernels' summed and covered time under the profiler (which slows
+    the branches), the graph pool's memory;
+11b. ``[dp]``: a process group of one card over NCCL; 20 steps of the
+    ray-parallel window (``parallel.sharding``: the all-gathers of the
+    per-ray outputs and the all-reduce inside the captured graph, over one
+    process copies) from the stage-1 checkpoint against the single-scan
+    graphed window from the same state, bit for bit (K1 = K2 = 20), and both
+    timed in turns;
 12. CUDA-event times of K1, K2 (each tier), K3, their plain versions and
     K3's library call, at the training shapes and at the validation chunk's; the profile
     of one validation chunk; the profile of a steady eager step of each
@@ -230,6 +248,21 @@ TOL_VAL = {"highest": {"color": (1e-3, 1e-5), "color_pixel": (5e-2, 1e-4),
 # mesh sampled every 0.002 (half a 512³ voxel), distances over 0.1 dropped,
 # precision and recall at 0.005 and 0.01.
 CHAMFER = {"downsample_density": 0.002, "max_dist": 0.1, "thresh1": 0.005, "thresh2": 0.01}
+# The multi-scan phase: MS_SCANS stage-1 scans (seeds 0..3) and MS_FT_SCANS
+# finetune scans from the stage-1 checkpoint, MS_STEPS iterations each (one
+# window: two eager warm-up units, the capture of one unit of every scan's
+# body, replays), every scan against a single-scan Runner(seed + i) through
+# its graphed window on scan i's views, bit for bit (the same kernels on the
+# same inputs in the same order, as in [window]); then the timed sweep over
+# MS_SWEEP scans a graph, TIMED_REPEATS x TIMED_STEPS iterations each.
+MS_SCANS, MS_FT_SCANS, MS_STEPS = 4, 2, 50
+MS_SWEEP = (1, 2, 4, 8)
+PROFILE_STEPS = 4  # multi-scan iterations under the profiler (S x 5,466 kernels each)
+# The ray-DP phase: DP_STEPS steps of the ray-parallel window over a
+# process group of one card (NCCL), against the single-scan graphed window
+# from the same state, bit for bit (over one process the all-gathers and
+# the all-reduce copy).
+DP_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -1370,6 +1403,301 @@ def profile_difference(base: dict, other: dict, top: int = 10) -> None:
         log(f"  {ms:+8.3f} ms  x{count:<+6.0f} {key[:90]}")
 
 
+def scan_views(i: int, n_img: int, steps: int) -> torch.Tensor:
+    """Scan i's views of its first ``steps`` iterations (the multi-scan
+    runner's stream, np.random.RandomState(i))."""
+    import numpy as np
+
+    rng = np.random.RandomState(i)
+    perm, out = rng.permutation(n_img), []
+    for step in range(steps):
+        out.append(int(perm[step % n_img]))
+        if (step + 1) % n_img == 0:
+            perm = rng.permutation(n_img)
+    return torch.tensor(out)
+
+
+def jsonl_rows(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def same_state(a, b) -> bool:
+    """Parameters, optimizer state and generator of two runners, bit for bit."""
+    from neuraludf_tpu_torch.train.optim import leaves
+
+    trees = ((a.params, b.params), (a.opt_state, b.opt_state))
+    return (all(torch.equal(x.detach(), y.detach()) for ta, tb in trees
+                for (_, x), (_, y) in zip(leaves(ta), leaves(tb)))
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def multi_scan_run(cfg, scene_dir, out_dir, n_scans, dev, counters, on_path, *, seed,
+                   is_finetune=False, ckpt=None):
+    """[multi_scan] main path: MultiScanRunner.train of n_scans scans of the
+    sphere for MS_STEPS iterations (resumed from ``ckpt`` for a finetune),
+    launch counts set to 0 just before and read just after (S launches of
+    each kernel of ``on_path`` an iteration); then each scan against a
+    single-scan Runner(seed + i) through its graphed window on scan i's
+    views: metric rows, parameters, optimizer and generator state bit for
+    bit."""
+    import shutil
+
+    from neuraludf_tpu_torch.parallel.multi_scan import MultiScanRunner
+    from neuraludf_tpu_torch.train import schedules
+    from neuraludf_tpu_torch.train.runner import Runner
+    from neuraludf_tpu_torch.train.step import METRIC_KEYS
+
+    cases = [f"scan{i}" for i in range(n_scans)]
+    if ckpt is not None:  # every scan resumes from the stage-1 checkpoint
+        for case in cases:
+            (out_dir / case / "checkpoints").mkdir(parents=True, exist_ok=True)
+            shutil.copy(ckpt, out_dir / case / "checkpoints")
+    ms = MultiScanRunner(cfg, [str(scene_dir)] * n_scans, cases, out_dir=str(out_dir), seed=seed,
+                         is_continue=ckpt is not None, is_finetune=is_finetune, device=dev)
+    first = ms.iter_step
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ms.train()
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    n_steps = ms.iter_step - first
+    log(f"[multi_scan] {n_scans} scans x {n_steps} iterations ({cfg.general.expname}) in "
+        f"{train_s:.1f} s; launches {launches}")
+    if any(n != (n_scans * n_steps if name in on_path else 0) for name, n in launches.items()):
+        raise AssertionError(f"[multi_scan] kernels {on_path} did not run once a scan and "
+                             f"iteration: {launches}, {n_scans} x {n_steps}")
+    equal = []
+    for i, scan in enumerate(ms.scans):
+        rows = jsonl_rows(Path(scan.base_exp_dir) / "logs" / "metrics.jsonl")[-n_steps:]
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"[multi_scan] scan {i}: a non-finite metric")
+        single = Runner(dataclasses.replace(cfg, general=dataclasses.replace(
+            cfg.general, base_exp_dir=str(out_dir / f"single{i}"))), device=dev, seed=seed + i,
+            is_finetune=is_finetune, dataset=scan.dataset)
+        if ckpt is not None:
+            single.load_checkpoint(ckpt)
+        scheds = [single._schedules_at(single.iter_step + j) for j in range(n_steps)]
+        window_fn = single._get_window_fn(schedules.is_blending(scheds[0]), n_steps)
+        got = window_fn(single.params, single.opt_state, single.dataset.scene,
+                        scan_views(i, scan.dataset.n_images, n_steps).to(dev), single.generator,
+                        torch.from_numpy(schedules.schedule_rows(scheds)).to(dev)).cpu()
+        want = [{"iter": first + 1 + j, **dict(zip(METRIC_KEYS, got[j].tolist()))}
+                for j in range(n_steps)]
+        equal.append(rows == want and same_state(scan, single))
+        del single, window_fn
+    log(f"[multi_scan] each scan against its single-scan graphed run, bit for bit: {equal}")
+    if not all(equal):
+        raise AssertionError(f"[multi_scan] a scan differs from its single-scan run: {equal}")
+    losses = [jsonl_rows(Path(s.base_exp_dir) / "logs" / "metrics.jsonl")[-1]["loss"]
+              for s in ms.scans]
+    del ms
+    torch.cuda.empty_cache()
+    return {"scans": n_scans, "steps": n_steps, "seconds": train_s, "launches": launches,
+            "bit_equal": equal, "last_losses": losses}
+
+
+def device_cover(prof) -> tuple:
+    """(summed kernel time, time covered by at least one kernel) in ms over
+    a profile's device kernels: branches that overlap count once in the
+    second."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total = sum(b - a for a, b in spans)
+    cover, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            cover += b - max(a, end)
+            end = b
+    return total / 1e3, cover / 1e3
+
+
+def time_multi_scan(cfg, ckpt, scene, dev, card, single_ms) -> dict:
+    """Timed multi-scan windows at MS_SWEEP scans, every scan from the
+    stage-1 checkpoint with a generator of its own seed: a window of
+    TIMED_STEPS iterations, whose first call (warm-up and capture) gives the
+    graph pool's memory, then TIMED_REPEATS timed calls ended by a
+    synchronize (ms a multi-scan iteration, scan-steps/s, against S x the
+    single graphed step ``single_ms``); then, that window freed, a window of
+    PROFILE_STEPS under the profiler: the summed kernel time and the time
+    covered by a kernel against the host clock. The profiler stretches
+    concurrent branches, so the profiled iteration is slower than the timed
+    one; S x the kernel time of one scan (the profile at S = 1) over the
+    timed iteration reads the overlap of the timed run itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuraludf_tpu_torch import convert
+    from neuraludf_tpu_torch.parallel.multi_scan import MultiScanWindow
+    from neuraludf_tpu_torch.render.renderer import UDFRenderer
+    from neuraludf_tpu_torch.train import schedules
+    from neuraludf_tpu_torch.train.step import build_step_body
+
+    c = cfg.color_loss
+    sched = schedules.compute_step_schedules(
+        N_WINDOWS * 50, cfg.train, c.color_base_weight, c.color_weight, c.color_pixel_weight,
+        c.color_patch_weight, is_finetune=False, reg_weights_schedule=False, same_lr=False,
+        beta_trainable=True, variance_trainable=True)
+    body = build_step_body(cfg, UDFRenderer(cfg.model))
+    out = {}
+    for S in MS_SWEEP:
+        t_start = time.time()
+        states = [convert.load_checkpoint(ckpt, dev) for _ in range(S)]
+        gens = [torch.Generator(device=dev).manual_seed(100 + i) for i in range(S)]
+
+        def window_call(steps: int):
+            window = MultiScanWindow(cfg, body, steps, 1, S)
+            rows = torch.from_numpy(schedules.schedule_rows([sched] * (steps * S))).reshape(
+                steps, S, -1).to(dev)
+            idxs = (torch.arange(steps * S, device=dev) % 16).reshape(steps, S)
+            return lambda: window([st["params"] for st in states],
+                                  [st["opt_state"] for st in states], [scene] * S, idxs, gens,
+                                  rows)
+
+        call = window_call(TIMED_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool_gib = (torch.cuda.memory_reserved() - reserved) / 2**30
+        ts = []
+        for _ in range(TIMED_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            call()
+            torch.cuda.synchronize()
+            ts.append((time.time() - t0) / TIMED_STEPS * 1e3)
+        del call
+        torch.cuda.empty_cache()
+        call = window_call(PROFILE_STEPS)
+        call()  # warm-up and capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            call()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3 / PROFILE_STEPS
+        summed, busy = (t / PROFILE_STEPS for t in device_cover(prof))
+        if not summed:
+            raise AssertionError(f"[multi_scan] S={S}: the profiler saw no kernel")
+        med = sorted(ts)[len(ts) // 2]
+        # S scans' kernel time, each at its time alone, over the timed iteration
+        overlap = S * out[1]["kernel_ms_summed"] / med if 1 in out else summed / med
+        out[S] = {"median_ms": med, "min_ms": min(ts), "max_ms": max(ts), "ms": ts,
+                  "scan_steps_per_s": S / med * 1e3, "vs_single_graphed": med / (S * single_ms),
+                  "alone_kernel_ms_over_timed": overlap, "profiled_wall_ms": wall,
+                  "kernel_ms_summed": summed, "covered_ms": busy, "covered_share": busy / wall,
+                  "graph_pool_gib": pool_gib}
+        log(f"[multi_scan] S={S}: median {med:.2f} ms an iteration (min {min(ts):.2f}, max "
+            f"{max(ts):.2f}), {S / med * 1e3:.1f} scan-steps/s, {med / (S * single_ms):.3f} of S "
+            f"x the single graphed step ({S * single_ms:.2f} ms); S x one scan's kernel time "
+            f"over it {overlap:.3f}; under the profiler kernels {summed:.2f} ms summed, covered "
+            f"{busy:.2f} of {wall:.2f} ms; graph pool {pool_gib:.2f} GiB "
+            f"({time.time() - t_start:.0f} s)  [{card}]")
+        del call, states, gens
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card, single_ms):
+    """[multi_scan]: the stage-1 and finetune multi-scan runs against their
+    single-scan runs, then the timed sweep."""
+    from neuraludf_tpu_torch.data.dataset import Dataset
+
+    out = {"stage1": multi_scan_run(dataclasses.replace(cfg, train=dataclasses.replace(
+               cfg.train, end_iter=MS_STEPS, save_freq=MS_STEPS, report_freq=MS_STEPS)),
+               scene_dir, exp_dir / "multi_scan", MS_SCANS, dev, counters, ("K1", "K2"), seed=0),
+           "finetune": multi_scan_run(dataclasses.replace(ft_cfg, train=dataclasses.replace(
+               ft_cfg.train, end_iter=MS_STEPS, save_freq=MS_STEPS, report_freq=MS_STEPS)),
+               scene_dir, exp_dir / "multi_scan_ft", MS_FT_SCANS, dev, counters,
+               ("K1", "K2", "K3"), seed=1, is_finetune=True, ckpt=ckpt)}
+    out["sweep"] = time_multi_scan(cfg, ckpt, Dataset(cfg.dataset, dev).scene, dev, card,
+                                   single_ms)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_dp(cfg, ckpt, dev, counters, card, exp_dir) -> dict:
+    """[dp]: a process group of one card over NCCL; DP_STEPS steps of the
+    ray-parallel window (its capture holding the all-gathers of the per-ray
+    outputs and the all-reduce) from the
+    stage-1 checkpoint against the single-scan graphed window from the same
+    state: metric rows, parameters and generator bit for bit, K1 = K2 =
+    DP_STEPS launches; the collective kernels inside the replayed graph
+    (torch.profiler); then both windows timed in turns."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuraludf_tpu_torch.parallel.sharding import build_parallel_train_window
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        cfg = dataclasses.replace(cfg, general=dataclasses.replace(
+            cfg.general, base_exp_dir=str(exp_dir / "dp")))
+        dp_runner, single = (Runner(cfg, device=dev, seed=0) for _ in range(2))
+        for r in (dp_runner, single):
+            r.load_checkpoint(ckpt)
+        dp_window = build_parallel_train_window(cfg, dp_runner.renderer, window=DP_STEPS)
+        scheds, rows, idxs = window_inputs(single, DP_STEPS)
+        for k in counters.values():
+            k.launches = 0
+        got = dp_window(dp_runner.params, dp_runner.opt_state, dp_runner.dataset.scene, idxs,
+                        dp_runner.generator, rows)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in counters.items()}
+        want = graphed_steps(single, scheds, rows, idxs)
+        equal = {"rows": torch.equal(got, want), "state": same_state(dp_runner, single)}
+        log(f"[dp] world 1 over NCCL: {DP_STEPS} graphed ray-parallel steps, launches "
+            f"{launches}; against the single-scan graphed window bit for bit: {equal}")
+        if not all(equal.values()):
+            from neuraludf_tpu_torch.train.step import METRIC_KEYS
+
+            cols = {METRIC_KEYS[j]: float((got[:, j] - want[:, j]).abs().max())
+                    for j in range(got.shape[1]) if not torch.equal(got[:, j], want[:, j])}
+            raise AssertionError(f"[dp] the ray-parallel window differs from the single: {equal}; "
+                                 f"largest differences by metric {cols}")
+        if launches != {"K1": DP_STEPS, "K2": DP_STEPS, "K3": 0}:
+            raise AssertionError(f"[dp] launches {launches}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dp_window(dp_runner.params, dp_runner.opt_state, dp_runner.dataset.scene, idxs,
+                      dp_runner.generator, rows)
+            torch.cuda.synchronize()
+        # NCCL may gather and reduce over one rank without a kernel: a count
+        nccl = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "nccl" in e.key.lower())
+        log(f"[dp] collective kernels in {DP_STEPS} replays: {nccl}")
+        times = {"dp": [], "single": []}
+        for _ in range(TIMED_REPEATS):
+            for name, r, fn in (("dp", dp_runner, dp_window),
+                                ("single", single, single._get_window_fn(False, DP_STEPS))):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn(r.params, r.opt_state, r.dataset.scene, idxs, r.generator, rows)
+                torch.cuda.synchronize()
+                times[name].append((time.time() - t0) / DP_STEPS * 1e3)
+        med = {name: sorted(ts)[len(ts) // 2] for name, ts in times.items()}
+        log(f"[dp] step: ray-parallel (world 1) median {med['dp']:.2f} ms, single "
+            f"{med['single']:.2f} ms ({TIMED_REPEATS} x {DP_STEPS} steps)  [{card}]")
+        del dp_window  # its graph holds the collectives: before the group goes
+        return {"launches": launches, "bit_equal": equal, "collective_kernels": nccl,
+                "times_ms": times, "median_ms": med}
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1516,6 +1844,20 @@ def main() -> int:
     val = check_validate(runner, cfg, exp_dir, counters, card)
     log(f"[validate] ok in {time.time() - t0:.1f} s")
 
+    # the training windows' graph pools go before the multi-scan graphs
+    runner._window_fns, ft_runner._window_fns = {}, {}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    log(f"[multi_scan] {MS_SCANS} stage-1 scans, {MS_FT_SCANS} finetune scans, the sweep over "
+        f"{MS_SWEEP} scans")
+    multi = check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card,
+                             window["stage1"]["times"]["graphed"]["median_ms"])
+    log(f"[multi_scan] ok in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dp = check_dp(config_mod.load(str(CONF), **common), ckpt, dev, counters, card, exp_dir)
+    log(f"[dp] ok in {time.time() - t0:.1f} s")
+    print(json.dumps({"multi_scan": multi, "dp": dp, "card": card}), flush=True)
+
     times, nbytes, flops = time_kernels(ucfg, kin, card)
     k3_times, k3_bytes, k3_flops = time_strip_sample(k3in, card)
     k1_val_times, k1_val_bytes, k1_val_flops = time_kernels(ucfg, val["k1_inputs"], card,
@@ -1528,7 +1870,10 @@ def main() -> int:
     tier = ucfg.fused_precision  # the main paths' tier
     by_path = lambda k: {"stage1": launches_stage1[k], "finetune": launches_ft[k],
                          "validate": val["launches"][k],
-                         "validate_image": val["cli_launches"][k]}
+                         "validate_image": val["cli_launches"][k],
+                         "multi_scan": (multi["stage1"]["launches"][k]
+                                        + multi["finetune"]["launches"][k]),
+                         "dp": dp["launches"][k]}
     checked_k12 = [f"{N_POINTS} points ({ucfg.udf_type} head, every tier)",
                    f"{N_OTHER_HEADS} points (square and sdf heads)"] + [
                    f"{n} points (a partly empty tile)" for n in N_RAGGED]

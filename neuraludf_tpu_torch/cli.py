@@ -11,7 +11,8 @@ training there), validate_mesh, extract_udf_mesh (alias validate_udf_mesh),
 validate_fields, validate_image* (views 0, 10, ..., 70 at resolution level
 1, colour and ground truth to ``novel_view/``), save_hdf5 and vis_one_ray.
 The modes other than train read the newest checkpoint with ``--is_continue``.
-``--multihost`` is not ported yet and raises.
+``--multihost`` first joins the process group of ``torchrun``'s environment
+(``parallel.multihost.initialize``) and runs on ``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of the training to this directory")
-    p.add_argument("--multihost", default=False, action="store_true", help="not ported yet")
+    p.add_argument("--multihost", default=False, action="store_true",
+                   help="join torchrun's process group; run on cuda:LOCAL_RANK")
     return p
 
 
@@ -60,11 +62,16 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.mode not in MODES and not args.mode.startswith("validate_image"):
         raise SystemExit(f"unknown mode {args.mode}")
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP: slice 5, item 11)")
 
     from . import config as config_mod
     from .train.runner import Runner, default_device
+
+    if args.multihost:
+        from .parallel import multihost
+
+        device = multihost.initialize()
+    else:
+        device = default_device(args.gpu)
 
     overrides = {}
     if args.learning_rate > 0:
@@ -81,7 +88,7 @@ def main(argv=None):
 
     runner = Runner(cfg, args.mode, is_continue=args.is_continue, is_finetune=args.is_finetune,
                     reg_weights_schedule=args.reg_weights_schedule, vis_ray=args.vis_ray,
-                    seed=args.seed, device=default_device(args.gpu))
+                    seed=args.seed, device=device)
     if args.mode == "train":
         trace = (profile_trace(args.profile_dir, runner.device) if args.profile_dir
                  else contextlib.nullcontext())

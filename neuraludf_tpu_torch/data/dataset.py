@@ -77,28 +77,57 @@ def _randint(high: int, n: int, generator: torch.Generator, device) -> torch.Ten
                          device=generator.device).to(device)
 
 
-def draw_pixels(scene: Scene, batch_size: int, generator: torch.Generator):
-    """Integer pixel draws, uniform over the image."""
+def draw_pixels(scene: Scene, batch_size: int, generator: torch.Generator,
+                importance_sample: bool = False) -> Dict[str, torch.Tensor]:
+    """The pixel draws of a batch: {"px", "py"} integers, uniform over the
+    image. With ``importance_sample`` these are the first quarter of the
+    batch, and ``u_mask`` holds a U[0, 1) number for each of the other three
+    quarters, which ``mask_pixels`` turns into an in-mask pixel of the view."""
     _, H, W, _ = scene["images"].shape
     dev = scene["images"].device
-    return _randint(W, batch_size, generator, dev), _randint(H, batch_size, generator, dev)
+    n_uni = batch_size // 4 if importance_sample else batch_size
+    draws = {"px": _randint(W, n_uni, generator, dev), "py": _randint(H, n_uni, generator, dev)}
+    if importance_sample:
+        draws["u_mask"] = torch.rand((batch_size - n_uni,), generator=generator,
+                                     device=generator.device).to(dev)
+    return draws
+
+
+def mask_pixels(mask_img: torch.Tensor, u: torch.Tensor):
+    """In-mask pixels (px, py) of a view's mask [H, W, 3] from U[0, 1)
+    numbers u, by the inverse of the mask's cumulative count, as the JAX
+    package's ``_draw_pixels`` (static shapes, no host read)."""
+    H, W = mask_img.shape[:2]
+    cdf = torch.cumsum((mask_img[..., 0] > 0).to(torch.float32).reshape(-1), 0)
+    flat = torch.clamp(torch.searchsorted(cdf, u * cdf[-1], right=True), 0, H * W - 1)
+    return flat % W, flat // W
 
 
 def sample_random_rays(scene: Scene, img_idx: ViewIndex, batch_size: int, *,
                        generator: Optional[torch.Generator] = None,
                        px: Optional[torch.Tensor] = None,
                        py: Optional[torch.Tensor] = None,
+                       u_mask: Optional[torch.Tensor] = None,
+                       importance_sample: bool = False,
                        crop_patch: bool = False,
                        h_patch_size: int = 3) -> Dict[str, Optional[torch.Tensor]]:
     """Random training rays from one view: {"rays": [B,10] (o, d, rgb, mask),
     "rays_ndc_uv": [B,2] in (-1,1), "rays_patch_color": [B,(2h+1)²,3] or
-    None, "rays_patch_mask": [B,1] or None}. With ``crop_patch`` the ground
-    truth patch around every pixel is cropped too (zeros outside the image)."""
+    None, "rays_patch_mask": [B,1] or None}. The pixels are ``px, py`` or
+    drawn from ``generator`` (``draw_pixels``); with ``importance_sample``,
+    or when ``u_mask`` is given, 3/4 of the batch lies in the view's mask
+    (``mask_pixels``) after the uniform quarter. With ``crop_patch`` the
+    ground truth patch around every pixel is cropped too (zeros outside the
+    image)."""
     _, H, W, _ = scene["images"].shape
     if px is None or py is None:
-        px, py = draw_pixels(scene, batch_size, generator)
+        draws = draw_pixels(scene, batch_size, generator, importance_sample)
+        px, py, u_mask = draws["px"], draws["py"], draws.get("u_mask")
     dev = scene["images"].device
     px, py = px.to(dev).long(), py.to(dev).long()
+    if u_mask is not None:
+        mx, my = mask_pixels(view_of(scene["masks"], img_idx), u_mask.to(dev))
+        px, py = torch.cat([px, mx]), torch.cat([py, my])
 
     image = view_of(scene["images"], img_idx)
     mask_img = view_of(scene["masks"], img_idx)
@@ -158,7 +187,7 @@ class Dataset:
         self.dataset_name = conf.dataset_name
         if self.dataset_name == "bmvs":
             raise NotImplementedError("the BlendedMVS JPEG layout needs a JPEG decoder, "
-                                      "not ported yet (ROADMAP: slice 1, open item 6)")
+                                      "not ported yet (ROADMAP §1)")
         self.downsample_factor = conf.downsample_factor
 
         camera_dict = np.load(os.path.join(self.data_dir, conf.render_cameras_name))

@@ -24,12 +24,18 @@ reference patch (patch blending), fused over the views with learned weights
 ``blend_top_k`` highest-weight samples of each ray through
 ``ops.strip_sample`` (kernel K3 for CUDA tensors, its plain version for CPU
 tensors); ``auto`` is ``strip`` for CUDA tensors and ``gather`` on the CPU.
+
+Under ray data parallelism each process renders a slice of the batch. The
+few reductions over the batch (the mean sample distance, the eikonal and
+sparsity means, the strip sampler's coverage) then go through ``gather``,
+which joins the slices of every process along the batch axis
+(``parallel.sharding``), so that each is the value of the whole batch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -47,6 +53,12 @@ from .sampling import (
 )
 
 Params = Dict[str, Any]
+Gather = Callable[..., torch.Tensor]  # gather(t, dim=0): the whole batch's t
+
+
+def no_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The batch is all here: nothing to join."""
+    return t
 
 
 @dataclass(frozen=True)
@@ -94,7 +106,8 @@ class UDFRenderer:
             raise ValueError(f"warp_sampler must be auto|gather|strip, got {mode!r}")
         return self.rcfg.blend_top_k > 0 and blending["color_maps"].is_cuda
 
-    def _blend_warp_strip(self, blending, pts3, normals_w, alpha_fg, opts):
+    def _blend_warp_strip(self, blending, pts3, normals_w, alpha_fg, opts,
+                          gather: Gather = no_gather):
         """Warp the blend_top_k highest-weight samples of each ray through
         ``strip_sample``. The warp positions are constants with respect to
         the networks, so sampling is forward-only.
@@ -155,7 +168,7 @@ class UDFRenderer:
             if opts.pixel_blending:
                 pix_color = colors[..., npx].permute(1, 2, 0, 3)  # [B, K, V, 3]
                 pix_mask = (pix_geo_valid & in_img[..., npx]).permute(1, 2, 0)
-            coverage = in_img.to(torch.float32).mean()
+            coverage = gather(in_img.to(torch.float32), 1).mean()
         return idx, pix_color, pix_mask, patch_color, patch_mask, coverage
 
     # -- background (NeRF++) -------------------------------------------------
@@ -190,7 +203,8 @@ class UDFRenderer:
                     cos_anneal_ratio=None, background_rgb=None, background_alpha=None,
                     background_sampled_color=None, flip_saturation=0.0,
                     blending: Optional[Dict[str, Any]] = None,
-                    opts: RenderOptions = RenderOptions()) -> Dict[str, Any]:
+                    opts: RenderOptions = RenderOptions(),
+                    gather: Gather = no_gather) -> Dict[str, Any]:
         """Foreground pass."""
         rcfg = self.rcfg
         batch, n = z_vals.shape
@@ -239,7 +253,9 @@ class UDFRenderer:
                                 sdf2alpha_type=rcfg.sdf2alpha_type).reshape(batch, n)
         alpha = alpha_plus * vis_prob + alpha_minus * (1.0 - vis_prob)
 
-        udf_2d = udf.reshape(batch, n)
+        # contiguous, as a ray-parallel step's all-gather returns it: a mean's
+        # order of summation follows the layout
+        udf_2d = udf.reshape(batch, n).contiguous()
 
         color_base, color_s, blending_logits = fields.residual_color_apply(
             params["color"], pts, grad_norm, dirs, feature, self.cfg.rendering_network)
@@ -256,7 +272,8 @@ class UDFRenderer:
             normals_w = (flip_sign * grad_norm).reshape(batch, n, 3)
             if self._strip_active(blending):
                 (blend_idx, pix_color, pix_mask, patch_color, patch_mask,
-                 strip_coverage) = self._blend_warp_strip(blending, pts3, normals_w, alpha, opts)
+                 strip_coverage) = self._blend_warp_strip(blending, pts3, normals_w, alpha, opts,
+                                                         gather)
                 logits_sel = torch.gather(
                     blending_logits, 1,
                     blend_idx[..., None].expand(-1, -1, blending_logits.shape[-1]))
@@ -341,6 +358,8 @@ class UDFRenderer:
 
         grad_err_all = (torch.linalg.vector_norm(gradients.reshape(batch, n, 3), dim=-1)
                         - 1.0) ** 2
+        grad_err_all, relax_inside, near_surface = (
+            gather(t) for t in (grad_err_all, relax_inside, near_surface))
         gradient_error = torch.sum(relax_inside * grad_err_all) / (torch.sum(relax_inside) + 1e-5)
         gradient_error_near_surface = torch.sum(near_surface * grad_err_all) / (
             torch.sum(near_surface) + 1e-5)
@@ -356,7 +375,7 @@ class UDFRenderer:
             d_surf = depth.detach() / torch.clamp(wsum, min=1e-3)
             protect = (torch.abs(mid_z - d_surf) <= rcfg.sparse_depth_gate) & (wsum > 0.5)
             sparse_term = torch.where(protect, torch.zeros_like(sparse_term), sparse_term)
-        sparse_error = torch.mean(torch.sum(sparse_term, dim=1))
+        sparse_error = torch.mean(gather(torch.sum(sparse_term, dim=1)))
 
         return {
             "color_base": color_base_out,
@@ -401,8 +420,10 @@ class UDFRenderer:
                noise: Optional[Dict[str, torch.Tensor]] = None,
                cos_anneal_ratio=None, flip_saturation=0.0, background_rgb=None,
                blending: Optional[Dict[str, Any]] = None,
-               opts: RenderOptions = RenderOptions()) -> Dict[str, Any]:
-        """Full forward. near/far: [B,1]."""
+               opts: RenderOptions = RenderOptions(),
+               gather: Gather = no_gather) -> Dict[str, Any]:
+        """Full forward. near/far: [B,1]. ``gather`` joins the batch slices
+        of the processes of a ray-parallel step for the batch reductions."""
         rcfg = self.rcfg
         noise = noise or {}
         batch = rays_o.shape[0]
@@ -410,7 +431,7 @@ class UDFRenderer:
         near, far = (v.to(dtype).expand(batch, 1) if isinstance(v, torch.Tensor)
                      else torch.full((batch, 1), v, dtype=dtype, device=dev) for v in (near, far))
 
-        sample_dist = torch.mean((far - near) / rcfg.n_samples)
+        sample_dist = torch.mean(gather((far - near) / rcfg.n_samples))
         t = torch.linspace(0.0, 1.0, rcfg.n_samples, dtype=dtype, device=dev)
         z_vals = near + (far - near) * t[None, :]
 
@@ -472,7 +493,7 @@ class UDFRenderer:
             cos_anneal_ratio=cos_anneal_ratio, background_rgb=background_rgb,
             background_alpha=background_alpha,
             background_sampled_color=background_sampled_color,
-            flip_saturation=flip_saturation, blending=blending, opts=opts)
+            flip_saturation=flip_saturation, blending=blending, opts=opts, gather=gather)
 
         out = dict(ret)
         out["variance"] = ret["s_val"]

@@ -83,9 +83,12 @@ def default_device(gpu: int = 0) -> torch.device:
 class Runner:
     def __init__(self, cfg: Config, mode: str = "train", *, is_continue: bool = False,
                  is_finetune: bool = False, reg_weights_schedule: bool = False,
-                 vis_ray: bool = False, seed: int = 0, device=None):
+                 vis_ray: bool = False, seed: int = 0, device=None,
+                 dataset: Optional[Dataset] = None):
         """device: cuda:0 unless given (tests pass "cpu"). A ``mode``
-        starting with "train" snapshots the sources (``file_backup``)."""
+        starting with "train" snapshots the sources (``file_backup``).
+        ``dataset``, already loaded on ``device``, replaces the one the
+        configuration names (the multi-scan runner's scans share theirs)."""
         self.device = torch.device(device) if device is not None else default_device()
         # model_type 'neus' trains a signed field with the inside_outside init
         self.model_type = cfg.general.model_type
@@ -102,7 +105,7 @@ class Runner:
         self.base_exp_dir = os.path.join(cfg.general.base_exp_dir, cfg.general.expname)
         os.makedirs(self.base_exp_dir, exist_ok=True)
 
-        self.dataset = Dataset(cfg.dataset, self.device)
+        self.dataset = dataset if dataset is not None else Dataset(cfg.dataset, self.device)
         self.renderer = UDFRenderer(cfg.model)
 
         self.iter_step = 0
@@ -158,12 +161,19 @@ class Runner:
         os.makedirs(d, exist_ok=True)
         return d
 
-    def _latest_checkpoint(self) -> Optional[str]:
-        d = self._ckpt_dir()
-        names = sorted(n for n in os.listdir(d) if n.endswith(".ckpt"))
-        return os.path.join(d, names[-1]) if names else None
+    def checkpoint_names(self) -> list:
+        """The names of the checkpoints to resume from, oldest first. crash_*
+        checkpoints (a multi-scan run's, saved for autopsy when a loss turns
+        non-finite) are never among them."""
+        return sorted(n for n in os.listdir(self._ckpt_dir())
+                      if n.startswith("ckpt_") and n.endswith(".ckpt"))
 
-    def save_checkpoint(self) -> str:
+    def _latest_checkpoint(self) -> Optional[str]:
+        names = self.checkpoint_names()
+        return os.path.join(self._ckpt_dir(), names[-1]) if names else None
+
+    def save_checkpoint(self, prefix: str = "ckpt") -> str:
+        """``<exp>/checkpoints/<prefix>_<iter>.ckpt``."""
         payload = {
             "params": convert.to_numpy(self.params),
             "opt_state": convert.to_numpy(self.opt_state),
@@ -172,7 +182,7 @@ class Runner:
             "variance_trainable": self.variance_trainable,
             "torch_rng": self.generator.get_state().numpy(),
         }
-        path = os.path.join(self._ckpt_dir(), f"ckpt_{self.iter_step:0>6d}.ckpt")
+        path = os.path.join(self._ckpt_dir(), f"{prefix}_{self.iter_step:0>6d}.ckpt")
         with open(path, "wb") as f:
             pickle.dump(payload, f)
         log.info("saved checkpoint %s", path)
@@ -243,7 +253,9 @@ class Runner:
                                                        unroll=unroll)
         return self._window_fns[key]
 
-    def train(self):
+    def train(self, report_hook=None):
+        """Trains to ``end_iter``. ``report_hook(it, metrics)`` is called every
+        ``report_freq`` iterations with that iteration's metric floats."""
         n_img = self.dataset.n_images
         perm_rng = np.random.RandomState(0)
         image_perm = perm_rng.permutation(n_img)
@@ -277,7 +289,7 @@ class Runner:
                         it = self.iter_step - k + 1 + j
                         m = dict(zip(METRIC_KEYS, mat[j].tolist()))
                         metrics_log.write(json.dumps({"iter": it, **m}) + "\n")
-                        self._post_step_host(it, m, t_start)
+                        self._post_step_host(it, m, t_start, report_hook)
                     metrics_log.flush()
                     self._periodic_actions(k)
         finally:
@@ -338,27 +350,33 @@ class Runner:
             except Exception:  # a validation mesh must not end the training
                 log.exception("mesh extraction failed at iter %d", self.iter_step)
 
-    def _post_step_host(self, it: int, m: Dict[str, float], t_start: float):
+    def _post_step_host(self, it: int, m: Dict[str, float], t_start: float, report_hook=None):
         """Host-side bookkeeping of one iteration, at metric-flush time."""
         tcfg = self.cfg.train
         if not np.isfinite(m["loss"]):
             path = self.save_checkpoint()
             raise FloatingPointError(f"non-finite loss at iter {it}: {m}; state saved to {path}")
-        # beta/variance trainability state machine
-        if (m["variance"] < 2 * m["beta"] and m["variance"] < 0.01 and self._beta_flag
-                and self.variance_trainable):
-            log.info("make beta trainable (iter %d)", it)
-            self.beta_trainable = True
-            self._beta_flag = False
-        if not self.variance_trainable and it > 20000 and not tcfg.freeze_variance:
-            self.variance_trainable = True
-
+        self.update_trainability(it, m)
         if it % tcfg.report_freq == 0:
             ips = it / max(time.time() - t_start, 1e-9)
             log.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f var=%.5f beta=%.5f "
                      "ws=%.3f udf_min=%.5f (%.1f it/s)",
                      it, m["loss"], m["color_total_loss"], m["gradient_error"], m["psnr"],
                      m["variance"], m["beta"], m["weight_sum"], m["udf_min"], ips)
+            if report_hook:
+                report_hook(it, m)
+
+    def update_trainability(self, it: int, m: Dict[str, float]):
+        """The beta/variance trainability state machine after iteration it
+        with metrics m: beta becomes trainable once the variance falls below
+        2 beta and 0.01; the variance after 20,000 iterations."""
+        if (m["variance"] < 2 * m["beta"] and m["variance"] < 0.01 and self._beta_flag
+                and self.variance_trainable):
+            log.info("make beta trainable (iter %d)", it)
+            self.beta_trainable = True
+            self._beta_flag = False
+        if not self.variance_trainable and it > 20000 and not self.cfg.train.freeze_variance:
+            self.variance_trainable = True
 
     # ------------------------------------------------------------------
     # mesh extraction

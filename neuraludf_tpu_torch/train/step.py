@@ -16,11 +16,17 @@ makes them outside the body, as the body would.
 the JAX package's ``lax.scan`` window: on a CUDA device as replays of one
 CUDA graph of ``unroll`` step bodies over static buffers, into which each
 replay's draws, views and schedule rows are copied first; on the CPU the
-same bodies run eagerly on the same buffers.
+same bodies run eagerly on the same buffers. ``parallel.multi_scan``
+does the same for S independent scans at once, one graph holding the step
+bodies of every scan.
+
+A body built with a ``RayShard`` renders only its process's slice of the
+batch and forms the loss of the whole batch (``parallel.sharding``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
@@ -29,13 +35,14 @@ from ..config import Config
 from ..data.dataset import draw_pixels, near_far_from_sphere, ref_src_info, sample_random_rays
 from ..losses.color import ColorLossWeights, bce_mask_loss, color_loss, psnr
 from ..render.projector import camera_inverse
-from ..render.renderer import RenderOptions, UDFRenderer, uniform_draw
+from ..render.renderer import Gather, RenderOptions, UDFRenderer, no_gather, uniform_draw
 from .optim import adam_step, flat_adam_step, leaves, make_lr_fn, make_trainable_fn
 from .schedules import SCHEDULE_KEYS, unpack_row
 
 Params = Dict[str, Any]
 Schedule = Union[torch.Tensor, Mapping[str, Any]]
 Noise = Dict[str, torch.Tensor]
+Grads = Dict[tuple, Optional[torch.Tensor]]
 
 METRIC_KEYS: List[str] = [
     "loss", "color_total_loss", "color_base_loss", "color_loss",
@@ -46,11 +53,39 @@ METRIC_KEYS: List[str] = [
 ]
 
 
-def build_loss_fn(cfg: Config, renderer: UDFRenderer, *, blending: bool = False) -> Callable:
+# the render outputs a loss reads per ray: a ray-parallel loss joins them
+PER_RAY = ("color_base", "color", "color_pixel", "patch_colors", "patch_mask", "weight_sum",
+           "weight_sum_fg_bg", "udf")
+
+
+@dataclass(frozen=True)
+class RayShard:
+    """Process ``rank`` of ``world`` renders rows [rank * B / world, (rank +
+    1) * B / world) of every batch; ``gather(t, dim=0)`` joins the slices of
+    all processes into the whole batch's t (differentiably), and
+    ``reduce_grads(grads, params)`` sums the parameter gradients over them."""
+    rank: int
+    world: int
+    gather: Gather
+    reduce_grads: Callable[[Grads, Dict[str, Any]], Grads]
+
+    def rows(self, batch: int) -> slice:
+        n = batch // self.world
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+
+def build_loss_fn(cfg: Config, renderer: UDFRenderer, *, blending: bool = False,
+                  shard: Optional[RayShard] = None) -> Callable:
     """loss_fn(params, scene, img_idx, sched, generator=None, noise=None)
     -> (total loss, metrics dict of 0-dim tensors). ``blending`` turns on the
     pixel and patch blending branches whose configured weight is positive.
-    ``sched`` is a schedule row or a dict of SCHEDULE_KEYS."""
+    ``sched`` is a schedule row or a dict of SCHEDULE_KEYS. A ``u_mask`` in
+    ``noise`` draws 3/4 of the batch from the view's mask (``draw_noise``).
+
+    With ``shard`` every process draws the whole batch (from ``noise``, or
+    ``draw_noise`` from ``generator``), renders its rows, joins the per-ray
+    outputs and computes the loss of the whole batch: the patch loss's
+    top-k, the masked means and the metrics are the single step's."""
     tcfg, ccfg = cfg.train, cfg.color_loss
     use_mask_loss = tcfg.mask_weight > 0
     h_patch = ccfg.h_patch_size
@@ -65,17 +100,23 @@ def build_loss_fn(cfg: Config, renderer: UDFRenderer, *, blending: bool = False)
 
     def loss_fn(params: Params, scene, img_idx, sched: Schedule,
                 generator: Optional[torch.Generator] = None, noise: Optional[Noise] = None):
+        if shard is not None and not noise:
+            noise = draw_noise(cfg, scene, generator)
         noise = noise or {}
         if isinstance(sched, torch.Tensor):
             sched = unpack_row(sched)
         sample = sample_random_rays(scene, img_idx, tcfg.batch_size, generator=generator,
                                     px=noise.get("px"), py=noise.get("py"),
+                                    u_mask=noise.get("u_mask"),
                                     crop_patch=opts.patch_blending, h_patch_size=h_patch)
         data = sample["rays"]
-        rays_o, rays_d = data[:, :3], data[:, 3:6]
         true_rgb, mask = data[:, 6:9], data[:, 9:10]
         mask = (mask > 0.5).to(torch.float32)
+        rows = slice(None) if shard is None else shard.rows(tcfg.batch_size)
+        rays_o, rays_d = data[rows, :3], data[rows, 3:6]
         near, far = near_far_from_sphere(rays_o, rays_d)
+        render_noise = {key: noise[key][rows] if key == "t_rand" else noise[key]
+                        for key in ("t_rand", "t_r") if key in noise}
 
         blending_inputs = None
         if opts.pixel_blending or opts.patch_blending:
@@ -85,17 +126,20 @@ def build_loss_fn(cfg: Config, renderer: UDFRenderer, *, blending: bool = False)
                 "w2cs": camera_inverse(src_c2ws),
                 "intrinsics": src_intr,
                 "query_c2w": ref_c2w,
-                "rays_uv": sample["rays_ndc_uv"] if opts.patch_blending else None,
+                "rays_uv": sample["rays_ndc_uv"][rows] if opts.patch_blending else None,
                 "img_index": None,
             }
 
         ret = renderer.render(
-            params, rays_o, rays_d, near, far, generator=generator, noise=noise,
+            params, rays_o, rays_d, near, far, generator=generator, noise=render_noise,
             cos_anneal_ratio=sched["cos_anneal_ratio"],
             flip_saturation=sched["flip_saturation"],
             background_rgb=(torch.ones((1, 3), device=rays_o.device)
                             if tcfg.use_white_bkgd else None),
-            blending=blending_inputs, opts=opts)
+            blending=blending_inputs, opts=opts,
+            gather=no_gather if shard is None else shard.gather)
+        if shard is not None:
+            ret.update({key: shard.gather(ret[key]) for key in PER_RAY if ret[key] is not None})
 
         weight_sum = ret["weight_sum"]
         patch_mask = None
@@ -158,10 +202,13 @@ def param_grads(total: torch.Tensor, params: Params) -> Dict[tuple, torch.Tensor
     return dict(zip(paths, grads))
 
 
-def build_step_body(cfg: Config, renderer: UDFRenderer, *, blending: bool = False) -> Callable:
+def build_step_body(cfg: Config, renderer: UDFRenderer, *, blending: bool = False,
+                    shard: Optional[RayShard] = None) -> Callable:
     """body(params, opt_state, scene, img_idx, sched, generator=None,
-    noise=None) -> metrics; updates params and opt_state in place."""
-    loss_fn = build_loss_fn(cfg, renderer, blending=blending)
+    noise=None) -> metrics; updates params and opt_state in place. With
+    ``shard`` the loss is ``build_loss_fn``'s of the whole batch, and the
+    parameter gradients are summed over the processes before the update."""
+    loss_fn = build_loss_fn(cfg, renderer, blending=blending, shard=shard)
     bcfg = cfg.model.beta_network
     adam = flat_adam_step if cfg.train.flat_adam else adam_step
 
@@ -170,6 +217,8 @@ def build_step_body(cfg: Config, renderer: UDFRenderer, *, blending: bool = Fals
             sched = unpack_row(sched)
         total, metrics = loss_fn(params, scene, img_idx, sched, generator, noise)
         grads = param_grads(total, params)
+        if shard is not None:
+            grads = shard.reduce_grads(grads, params)
         lr_fn = make_lr_fn(sched["lr_geo"], sched["lr_main"], sched["lr_main"])
         trainable_fn = make_trainable_fn(bcfg, sched["variance_trainable"],
                                          sched["beta_trainable"])
@@ -179,14 +228,16 @@ def build_step_body(cfg: Config, renderer: UDFRenderer, *, blending: bool = Fals
     return body
 
 
-def draw_noise(cfg: Config, scene, generator: torch.Generator) -> Noise:
+def draw_noise(cfg: Config, scene, generator: torch.Generator,
+               importance_sample: bool = False) -> Noise:
     """One iteration's draws, in the order, shapes and on the devices in
     which the step body makes them when ``noise`` is not given (pixels, then
     the render's z perturbation and outside jitter), so that a run fed from
-    here consumes the generator as an eager run does."""
+    here consumes the generator as an eager run does. With
+    ``importance_sample`` the pixel draws hold ``u_mask``, which puts 3/4 of
+    the batch in the view's mask (``data.dataset.draw_pixels``)."""
     rcfg, batch = cfg.model.udf_renderer, cfg.train.batch_size
-    px, py = draw_pixels(scene, batch, generator)
-    noise = {"px": px, "py": py}
+    noise = draw_pixels(scene, batch, generator, importance_sample)
     dev = scene["images"].device
     if rcfg.perturb > 0:
         noise["t_rand"] = uniform_draw((batch, 1), generator, dev, torch.float32) - 0.5

@@ -44,9 +44,10 @@ iteration's metrics.
 
 The closing mesh is copied into ``--mesh_dir`` (beside ``--out`` unless
 given). With ``--no_score`` the card only trains; ``--score_only
-<mesh.ply>`` then scores that copy on any machine, without a card. Prints
-one JSON line, and writes it to ``--out`` too. Imports nothing of the JAX
-package.
+<mesh.ply>`` then scores that copy on any machine, without a card (with
+``--radial_ckpt <ckpt>``, the radial profile of that checkpoint's field
+too). Prints one JSON line, and writes it to ``--out`` too. Imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -156,6 +157,8 @@ def main() -> int:
     p.add_argument("--fused_precision", default="", choices=["", "default", "high", "highest"])
     p.add_argument("--fused_core", default="", choices=["", "auto", "on", "off"])
     p.add_argument("--seed", type=int, default=0, help="the CLI's --seed")
+    p.add_argument("--radial_ckpt", default="",
+                   help="with --score_only: the radial profile of this checkpoint's field")
     args = p.parse_args()
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)  # the configuration's paths are relative to the checkout
@@ -187,7 +190,11 @@ def main() -> int:
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     if args.score_only:
-        return emit({"mesh_path": args.score_only, **scores(args.score_only)})
+        row = {"mesh_path": args.score_only, **scores(args.score_only)}
+        if args.radial_ckpt:
+            row.update(radial_ckpt=args.radial_ckpt,
+                       radial=radial_profile("confs/synthetic_smoke.conf", args.radial_ckpt))
+        return emit(row)
     if not torch.cuda.is_available():
         print("torch_sphere_quality: no CUDA device", file=sys.stderr)
         return 1

@@ -386,15 +386,18 @@ def test_runner_train_checkpoint_and_jax_import(scene_dir, tmp_path):
 
 
 def test_cli_surface(monkeypatch):
-    """The CLI keeps the JAX package's arguments and modes; only --multihost
-    is not ported yet and raises; every mode, --vis_ray and --profile_dir
-    included, asks for a CUDA device instead of falling back."""
+    """The CLI keeps the JAX package's arguments and modes; --multihost
+    joins the launcher's process group first (tests/test_torch_multihost.py)
+    and raises without its environment; every mode, --vis_ray and
+    --profile_dir included, asks for a CUDA device instead of falling back."""
     from neuraludf_tpu import cli as jcli
     from neuraludf_tpu_torch import cli as tcli
 
     jargs = {a.dest for a in jcli.build_parser()._actions}
     assert jargs == {a.dest for a in tcli.build_parser()._actions}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         tcli.main(["--mode", "train", "--multihost"])
     with pytest.raises(SystemExit, match="unknown mode"):
         tcli.main(["--mode", "render_everything"])
