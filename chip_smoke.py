@@ -16,7 +16,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    twice on the same inputs for bit-equal W̄ and b̄; then the same for the
    ``square`` and ``sdf`` heads at 4,096 points, and for the ``abs`` head at
    5,000 points (not a multiple of the 128-row tile) and at 300 (one partly
-   empty tile of K1);
+   empty tile of K1); on a net of one hidden layer, "high" by RMS against
+   its explicit version; and "highest" on a 128-wide net, which the sweeps
+   refuse, through the f32 GEMMs;
 4. the synthetic sphere scene (16 views, 600x800) with the port's generator;
 5. one training loss and its gradients on a small batch through the kernels
    (tiers "highest" and "high") against the plain autograd path;
@@ -47,9 +49,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ended by a synchronize (median and spread of ms a step), the device-busy
    share and kernel count of a replayed step (torch.profiler), and the
    memory the graph's pool takes;
-9b. ``[high]``: both training paths again at ``fused_precision = "high"``,
-   one window of 50 steps each from the stage-1 checkpoint, at full width,
-   with the same launch counts;
+9b. ``[high]``, ``[highest]``: both training paths again at
+   ``fused_precision = "high"`` and ``"highest"``, one window of 50 steps
+   each from the stage-1 checkpoint, at full width, with the same launch
+   counts, and each kernel's route counter once a step (``highest`` takes
+   the 3xTF32 sweeps on the main-path net); then ``[tiers]``: the graphed
+   stage-1 step at ``default`` and ``highest``, 5 x 20 steps each in turns;
 10. ``[mesh]`` on the stage-1 runner's field (its 200-step state): the
     MeshUDF grid at 64³ on the card against the same on the CPU; the CLI's
     closing extraction (``extract_udf_mesh`` at 512³, world space, distance
@@ -133,10 +138,19 @@ REPS = 10  # kernel launches per timing
 PEAK_FLOPS = {"default": 989e12, "high": 989e12, "highest": 67e12}
 TIERS = ("default", "high", "highest")
 PEAK_BYTES = 3.35e12
+# The routes of tier "highest" (fused_distance.highest_route), priced by
+# their own work: the 3xTF32 sweeps make three tf32 tensor-core passes of
+# every product (495 TFLOP/s dense), the f32 GEMMs one pass on the CUDA
+# cores. PEAK_FLOPS["highest"] stays the f32 price of the function (and of
+# K3 and the grid fill).
+ROUTE_PEAK = {"tf32x3": (3, 495e12), "gemm": (1, 67e12)}
 
 # Tolerances, as max |kernel - reference| / max |reference| per output.
-# "highest" against the explicit version: the same f32 arithmetic, summed in
-# another order. "default" against the explicit version at the same tier:
+# "highest" against the explicit version: f32 products, summed in another
+# order; on the 3xTF32 route each operand is split into tf32 hi and lo (2^-22
+# relative together) and the tensor cores' truncating sums are flushed into
+# f32 every two k8 steps (measured ~1.5e-6 on the card, the f32 route's ~1e-6).
+# "default" against the explicit version at the same tier:
 # both round every matmul operand, and the sigma(100a) and q that the reverse
 # sweep reads back, to bf16; but an activation that differs by an f32 ulp (the
 # kernels use the fast exp, log and divide) may round to the neighbouring bf16
@@ -178,7 +192,7 @@ TOL_STEP = 1e-3  # small-batch loss and gradients, kernels ("highest") vs plain
 # the same at "high": its bf16 cotangents move the udf gradients (K2's W̄,
 # b̄), measured 1.7e-2 of a leaf's largest entry (the loss 1.5e-5)
 TOL_STEP_HIGH = 5e-2
-HIGH_STEPS = 50  # one window of each training path at tier "high"
+TIER_STEPS = 50  # one window of each training path at tiers "high" and "highest"
 # K3, max |kernel - reference| over the colours whose mask is true. Against
 # the plain version: the same f32 formula on the same absolute positions;
 # nvcc contracts the four products into FMAs. Against F.grid_sample: it takes
@@ -326,10 +340,11 @@ def kernel_flops(ucfg, n: int, tier: str = "default") -> dict:
     return {"K1": 2.0 * n * k1, "K2": 2.0 * n * k2}
 
 
-def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
+def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True,
+                  tiers=("highest", "high", "default")):
     """K1 and K2 (K1 alone without ``backward``) against both plain
-    versions, each tier, with the head of ucfg.udf_type; returns the errors
-    and the inputs."""
+    versions, each of ``tiers``, with the head of ucfg.udf_type; returns
+    the errors and the inputs."""
     from neuraludf_tpu_torch.nets import fields
     from neuraludf_tpu_torch.ops import fused_distance as fd
 
@@ -370,7 +385,7 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
 
     names_fwd, names_bwd = ("udf", "feat", "grad"), ("xbar", "wbar", "bbar")
     errors, kernel_out = {}, {}
-    for tier in ("highest", "high", "default"):
+    for tier in tiers:
         k_fwd = fd.fused_forward(x, wflat, bflat, lay, tier)
         torch.cuda.synchronize()
         k_bwd = e_bwd = None
@@ -400,7 +415,7 @@ def check_kernels(ucfg, dev, n_points: int = N_POINTS, backward: bool = True):
                         f"max_abs_err={err:.3e} rel={rel:.3e} tol={tol:.0e}")
     # "high" against the f32 kernel on the same inputs
     for kname, i, names in (("K1", 0, names_fwd), ("K2", 1, names_bwd)):
-        if kernel_out["high"][i] is None:
+        if not {"high", "highest"} <= set(kernel_out) or kernel_out["high"][i] is None:
             continue
         for name, a, b in zip(names, kernel_out["high"][i], kernel_out["highest"][i]):
             err, rel = rel_err(a, b)
@@ -447,6 +462,26 @@ def check_high_rounding(ucfg, dev, n_points: int = N_POINTS):
     if bad:
         raise AssertionError(f"tier 'high' does not round as the explicit version does: {bad}")
     return out
+
+
+def check_refused_net(ucfg, dev, n_points: int = N_POINTS) -> dict:
+    """K1 and K2 at tier "highest" on a net the sweeps refuse (128-wide
+    hidden layers) go through the f32 CUDA-core GEMMs, against both plain
+    versions (TOL)."""
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    narrow = dataclasses.replace(ucfg, d_hidden=128)
+    route = fd.highest_route(fd.layout_for(narrow))
+    kernels = (fd.fused_forward, fd.fused_backward)
+    before = [{r: c.launches for r, c in k.routes.items()} for k in kernels]
+    log(f"[kernels] K1/K2 at tier 'highest' on a {narrow.n_layers}x{narrow.d_hidden} net at "
+        f"N={n_points}: route {route}")
+    errors, _ = check_kernels(narrow, dev, n_points, tiers=("highest",))
+    ran = [{r: c.launches - b[r] for r, c in k.routes.items()} for k, b in zip(kernels, before)]
+    if route != "gemm" or any(n != (1 if r == "gemm" else 0) for r, n in ran[0].items()) or any(
+            n != (2 if r == "gemm" else 0) for r, n in ran[1].items()):
+        raise AssertionError(f"the refused net did not go through the f32 GEMMs alone: {ran}")
+    return errors
 
 
 def check_small_step(cfg, dataset, dev):
@@ -650,6 +685,81 @@ def train_main_path(runner, cfg, exp_dir, counters, on_path):
     if not means[-1] <= means[0]:
         raise AssertionError(f"training loss did not decrease: window means {means}")
     return launches, rows
+
+
+def train_tier(tier, ckpt, common, exp_dir, n_stage1, dev, counters) -> dict:
+    """Both training paths at ``fused_precision = tier``, TIER_STEPS steps
+    each from the stage-1 checkpoint at full width, in an experiment
+    directory of their own; K1 and K2 launch once a step, each through the
+    route the tier takes on the main-path net (its route counter once a
+    step, every other route's 0). Returns the launches by path."""
+    from neuraludf_tpu_torch import config as config_mod
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    t0 = time.time()
+    tier_dir = exp_dir / tier
+    over = dict(common, general__base_exp_dir=str(tier_dir),
+                model__udf_network__fused_precision=tier)
+    cfg = config_mod.load(str(CONF), train__end_iter=n_stage1 + TIER_STEPS,
+                          train__save_freq=n_stage1, **over)
+    route = fd.route_for(fd.layout_for(cfg.model.udf_network), tier)
+    with_routes = dict(counters, **{f"{name}/{r}": kern.routes[r] for name, kern in
+                                    (("K1", fd.fused_forward), ("K2", fd.fused_backward))
+                                    for r in fd.ROUTES})
+    on_path = ("K1", "K2", f"K1/{route}", f"K2/{route}")
+    runner = Runner(cfg, device=dev, seed=0)
+    runner.load_checkpoint(ckpt)
+    log(f"[{tier}] stage 1 at fused_precision={tier}, route {route}, from {Path(ckpt).name}")
+    launches = {"stage1": train_main_path(runner, cfg, tier_dir, with_routes, on_path)[0]}
+    ft_cfg = config_mod.load(str(FT_CONF), train__end_iter=TIER_STEPS, **FT_SCHEDULE, **over)
+    ft_runner = Runner(ft_cfg, device=dev, seed=1, is_finetune=True)
+    ft_runner.load_checkpoint(ckpt)
+    log(f"[{tier}] finetune at fused_precision={tier}, route {route}")
+    launches["finetune"], ft_rows = train_main_path(ft_runner, ft_cfg, tier_dir, with_routes,
+                                                    on_path + ("K3",))
+    check_finetune_rows(ft_rows)
+    del runner, ft_runner
+    torch.cuda.empty_cache()
+    log(f"[{tier}] ok in {time.time() - t0:.1f} s")
+    return launches
+
+
+def time_graphed_tiers(ckpt, common, exp_dir, dev, card) -> dict:
+    """The graphed stage-1 step at tiers "default" and "highest" from the
+    stage-1 checkpoint: host-clock ms a step over TIMED_REPEATS repeats of
+    TIMED_STEPS iterations (a window of TIMED_STEPS, captured before the
+    timing), the tiers in turns, each ended by a synchronize."""
+    from neuraludf_tpu_torch import config as config_mod
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    runners, inputs, times = {}, {}, {}
+    for tier in ("default", "highest"):
+        cfg = config_mod.load(str(CONF), **dict(
+            common, general__base_exp_dir=str(exp_dir / "timed" / tier),
+            model__udf_network__fused_precision=tier))
+        runners[tier] = Runner(cfg, device=dev, seed=0)
+        runners[tier].load_checkpoint(ckpt)
+        inputs[tier] = window_inputs(runners[tier], TIMED_STEPS)
+        graphed_steps(runners[tier], *inputs[tier])  # warm-up and capture
+        times[tier] = []
+    for _ in range(TIMED_REPEATS):
+        for tier, runner in runners.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            graphed_steps(runner, *inputs[tier])
+            torch.cuda.synchronize()
+            times[tier].append((time.time() - t0) / TIMED_STEPS * 1e3)
+    out = {}
+    for tier, ts in times.items():
+        med = sorted(ts)[len(ts) // 2]
+        out[tier] = {"median_ms": med, "min_ms": min(ts), "max_ms": max(ts), "ms": ts}
+        log(f"[tiers] graphed stage-1 step at fused_precision={tier}: median {med:.2f} ms (min "
+            f"{min(ts):.2f}, max {max(ts):.2f}; {TIMED_REPEATS} x {TIMED_STEPS} steps, the tiers "
+            f"in turns)  [{card}]")
+    del runners
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_finetune_rows(rows):
@@ -1286,10 +1396,28 @@ def time_strip_sample(k3in, card):
     return times, nbytes, flops
 
 
-def time_kernels(ucfg, kin, card, backward: bool = True):
+def call_launches(kin) -> dict:
+    """CUDA launches of one K1 and one K2 call at each tier on the inputs
+    of ``kin`` (torch.profiler). Taken before any other profiler session of
+    the run: later sessions, after the graph captures and the profiles of
+    the steps, counted 0 launches for most calls."""
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    x, wflat, bflat, lay = kin["x"], kin["wflat"], kin["bflat"], kin["lay"]
+    cot = (kin["ubar"], kin["fbar"], kin["gbar"])
+    with torch.no_grad():
+        out = {(k, tier): cuda_launches(lambda: call(tier)) for tier in TIERS
+               for k, call in (("K1", lambda t: fd.fused_forward(x, wflat, bflat, lay, t)),
+                               ("K2", lambda t: fd.fused_backward(x, wflat, bflat, lay, t, *cot)))}
+    log(f"[kernels] CUDA launches a call: {({f'{k} {t}': n for (k, t), n in out.items()})}")
+    return out
+
+
+def time_kernels(ucfg, kin, card, launches: dict, backward: bool = True):
     """CUDA-event times of K1, K2 (K1 alone without ``backward``) and their
     explicit plain versions, every tier, at the points of ``kin``; with the
-    work each must do at each tier."""
+    work each must do at each tier, and the CUDA launches a call of
+    ``launches`` (call_launches)."""
     from neuraludf_tpu_torch.ops import fused_distance as fd
 
     x, wflat, bflat, lay = kin["x"], kin["wflat"], kin["bflat"], kin["lay"]
@@ -1314,7 +1442,7 @@ def time_kernels(ucfg, kin, card, backward: bool = True):
     for tier in TIERS:
         for k in names:
             bound = bound_ms(nbytes[k], flops[tier][k], tier)
-            times[(k + "launches", tier)] = cuda_launches(lambda: calls[k](tier))
+            times[(k + "launches", tier)] = launches[(k, tier)]
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
             calls[k](tier)
@@ -1326,6 +1454,13 @@ def time_kernels(ucfg, kin, card, backward: bool = True):
                 f"{flops[tier][k] / 1e9:.1f} GFLOP, {nbytes[k] / 1e6:.1f} MB)  "
                 f"{times[(k + 'launches', tier)]} CUDA launches, {mem:.0f} MiB of outputs and "
                 f"scratch a call  [{card}]")
+            if tier == "highest":
+                route = fd.highest_route(lay)
+                rb = route_bound_ms(nbytes[k], flops[tier][k], route)
+                log(f"[time] {k} highest  route {route}: bound {rb:.4f} ms at "
+                    f"{ROUTE_PEAK[route][0]} pass(es) of {ROUTE_PEAK[route][1] / 1e12:.0f} "
+                    f"TFLOP/s ({100 * rb / times[(k, tier)]:.1f}% of it reached) beside the f32 "
+                    f"CUDA-core bound {bound:.4f} ms  [{card}]")
     return times, nbytes, flops
 
 
@@ -1343,6 +1478,13 @@ def cuda_launches(fn) -> int:
 
 def bound_ms(nbytes: float, flops: float, tier: str) -> float:
     return max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[tier]) * 1e3
+
+
+def route_bound_ms(nbytes: float, flops: float, route: str) -> float:
+    """The bound of a tier-"highest" route: its passes of the f32 work at
+    its peak, or the bytes."""
+    passes, peak = ROUTE_PEAK[route]
+    return max(nbytes / PEAK_BYTES, passes * flops / peak) * 1e3
 
 
 def steady_body(runner):
@@ -1751,6 +1893,7 @@ def main() -> int:
     t0 = time.time()
     log(f"[kernels] K1/K2 at N={N_POINTS} against the plain versions")
     errors, kin = check_kernels(ucfg, dev)
+    launches_a_call = call_launches(kin)
     for head in sorted(set(fd.HEADS) - {ucfg.udf_type}):  # the heads the main path does not run
         log(f"[kernels] K1/K2 with the '{head}' head at N={N_OTHER_HEADS}")
         check_kernels(dataclasses.replace(ucfg, udf_type=head), dev, N_OTHER_HEADS)
@@ -1759,6 +1902,7 @@ def main() -> int:
         check_kernels(ucfg, dev, n)
     log(f"[kernels] tier 'high' on a net of one hidden layer at N={N_POINTS}")
     high_rounding = check_high_rounding(ucfg, dev)
+    refused = check_refused_net(ucfg, dev)
     log(f"[kernels] ok in {time.time() - t0:.1f} s; K2's outputs bit-equal over two calls")
 
     t0 = time.time()
@@ -1810,29 +1954,12 @@ def main() -> int:
     print(json.dumps({"window": window, "card": card}), flush=True)
     log(f"[window] ok in {time.time() - t0:.1f} s")
 
-    # tier "high" on both training paths: one window each from the stage-1
-    # checkpoint, at full width, into an experiment directory of its own
-    t0 = time.time()
-    high_dir = exp_dir / "high"
-    high = dict(common, general__base_exp_dir=str(high_dir),
-                model__udf_network__fused_precision="high")
-    hi_cfg = config_mod.load(str(CONF), train__end_iter=n_stage1 + HIGH_STEPS,
-                             train__save_freq=n_stage1, **high)
-    hi_runner = Runner(hi_cfg, device=dev, seed=0)
-    hi_runner.load_checkpoint(ckpt)
-    log(f"[high] stage 1 at fused_precision=high from {Path(ckpt).name}")
-    launches_high = {"stage1": train_main_path(hi_runner, hi_cfg, high_dir, counters,
-                                               ("K1", "K2"))[0]}
-    hi_ft_cfg = config_mod.load(str(FT_CONF), train__end_iter=HIGH_STEPS, **FT_SCHEDULE, **high)
-    hi_ft_runner = Runner(hi_ft_cfg, device=dev, seed=1, is_finetune=True)
-    hi_ft_runner.load_checkpoint(ckpt)
-    log("[high] finetune at fused_precision=high")
-    launches_high["finetune"], hi_ft_rows = train_main_path(hi_ft_runner, hi_ft_cfg, high_dir,
-                                                            counters, ("K1", "K2", "K3"))
-    check_finetune_rows(hi_ft_rows)
-    del hi_runner, hi_ft_runner
-    torch.cuda.empty_cache()
-    log(f"[high] ok in {time.time() - t0:.1f} s")
+    # tiers "high" and "highest" on both training paths: one window each
+    # from the stage-1 checkpoint, each through its own route
+    launches_tier = {tier: train_tier(tier, ckpt, common, exp_dir, n_stage1, dev, counters)
+                     for tier in ("high", "highest")}
+    step_times = time_graphed_tiers(ckpt, common, exp_dir, dev, card)
+    print(json.dumps({"graphed_stage1_step_by_tier": step_times, "card": card}), flush=True)
 
     t0 = time.time()
     log(f"[mesh] on the stage-1 field ({runner.iter_step} steps)")
@@ -1858,10 +1985,10 @@ def main() -> int:
     log(f"[dp] ok in {time.time() - t0:.1f} s")
     print(json.dumps({"multi_scan": multi, "dp": dp, "card": card}), flush=True)
 
-    times, nbytes, flops = time_kernels(ucfg, kin, card)
+    times, nbytes, flops = time_kernels(ucfg, kin, card, launches_a_call)
     k3_times, k3_bytes, k3_flops = time_strip_sample(k3in, card)
     k1_val_times, k1_val_bytes, k1_val_flops = time_kernels(ucfg, val["k1_inputs"], card,
-                                                            backward=False)
+                                                            launches_a_call, backward=False)
     k3_val_times, k3_val_bytes, k3_val_flops = time_strip_sample(val["k3_inputs"], card)
     # after cuda_launches: a profile taken before it cost that count its launches
     profile_chunk(runner)
@@ -1874,6 +2001,7 @@ def main() -> int:
                          "multi_scan": (multi["stage1"]["launches"][k]
                                         + multi["finetune"]["launches"][k]),
                          "dp": dp["launches"][k]}
+    hroute = fd.highest_route(fd.layout_for(ucfg))
     checked_k12 = [f"{N_POINTS} points ({ucfg.udf_type} head, every tier)",
                    f"{N_OTHER_HEADS} points (square and sdf heads)"] + [
                    f"{n} points (a partly empty tile)" for n in N_RAGGED]
@@ -1897,13 +2025,33 @@ def main() -> int:
             else "bytes",
             "library_ms": None,
             # tier "high" (bf16x3): its own windows of the two training paths
-            "high_launches_by_path": {p: launches_high[p][k] for p in launches_high},
+            "high_launches_by_path": {p: launches_tier["high"][p][k] for p in ("stage1",
+                                                                              "finetune")},
             "high_max_abs_err": max(errors[(k, "high", "explicit", o)][0] for o in outs),
             "high_max_rel_err_vs_highest": max(errors[(k, "high", "highest", o)][1] for o in outs),
             "high_rms_rel_err_one_hidden_layer": max(high_rounding[o][0] for o in outs),
             "high_ms": times[(k, "high")], "high_plain_ms": times[(k + "plain", "high")],
             "high_cuda_launches_per_call": times[(k + "launches", "high")],
             "high_bound_ms": bound_ms(nbytes[k], flops["high"][k], "high"),
+            # tier "highest": the 3xTF32 sweeps on the main-path net, the f32
+            # GEMMs on a net the sweeps refuse
+            "highest_route": hroute,
+            "highest_launches_by_path": {p: launches_tier["highest"][p][k]
+                                         for p in ("stage1", "finetune")},
+            "highest_route_launches_by_path": {
+                p: launches_tier["highest"][p][f"{k}/{hroute}"] for p in ("stage1", "finetune")},
+            "highest_max_abs_err": max(errors[(k, "highest", "explicit", o)][0] for o in outs),
+            "highest_max_rel_err": max(errors[(k, "highest", r, o)][1] for o in outs
+                                       for r in ("explicit", "autograd")),
+            "highest_refused_net_max_rel_err": max(refused[(k, "highest", r, o)][1] for o in outs
+                                                   for r in ("explicit", "autograd")),
+            "highest_ms": times[(k, "highest")],
+            "highest_plain_ms": times[(k + "plain", "highest")],
+            "highest_cuda_launches_per_call": times[(k + "launches", "highest")],
+            "highest_bound_ms": route_bound_ms(nbytes[k], flops["highest"][k], hroute),
+            "highest_bound_f32_cores_ms": bound_ms(nbytes[k], flops["highest"][k], "highest"),
+            "highest_share_of_bound": route_bound_ms(nbytes[k], flops["highest"][k], hroute)
+            / times[(k, "highest")],
         })
     kernels[0]["validation_chunk"] = {
         "points": N_VAL_POINTS, "launches_per_chunk": 1,
@@ -1911,7 +2059,9 @@ def main() -> int:
                            for o in ("udf", "feat", "grad")),
         **{f"{t}_{key}": value for t in TIERS for key, value in (
             ("ms", k1_val_times[("K1", t)]), ("plain_ms", k1_val_times[("K1plain", t)]),
-            ("bound_ms", bound_ms(k1_val_bytes["K1"], k1_val_flops[t]["K1"], t)))}}
+            ("bound_ms", bound_ms(k1_val_bytes["K1"], k1_val_flops[t]["K1"], t)))},
+        "highest_route_bound_ms": route_bound_ms(k1_val_bytes["K1"],
+                                                 k1_val_flops["highest"]["K1"], hroute)}
     kernels.append({
         "name": "strip_sample", "route": "cuda",
         "source": "neuraludf_tpu_torch/csrc/strip_sample.cu",

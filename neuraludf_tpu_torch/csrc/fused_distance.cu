@@ -14,8 +14,10 @@
 // column: 1.15e11 flop) and 5.901 MFLOP in K2 (six passes less three
 // head-width products: 3.44e11 flop), while their inputs and outputs are
 // ~65 MB: far above the H100's ~295 flop/byte ridge, so the tensor-core
-// (bf16, tier "default") or CUDA-core (f32, tier "highest") rate is the
-// limit: 0.116 / 0.348 ms in bf16.
+// rate (bf16 at tier "default", three tf32 passes at "highest") or, on the
+// nets the sweeps refuse, the CUDA cores' f32 rate is the limit: 0.116 /
+// 0.348 ms in bf16, 0.696 / 2.087 ms in 3xTF32, 1.714 / 5.141 ms in f32
+// (NVIDIA H100 80GB HBM3, 700 W, published peaks).
 //
 // What the design of tier "default" does about it (sweep_kernel,
 // wgrad_kernel):
@@ -65,9 +67,50 @@
 //   once per sweep and tile (~32 B a cycle and SM), and the epilogues run
 //   while the tensor cores wait, since both warpgroups work in step. These,
 //   not the tensor-core rate, are the practical floor of this design.
-// Tier "highest" runs every product as one tiled f32 GEMM on the CUDA cores
-// (gemm_kernel, 64x64 tiles) with the same fused epilogues, through a
-// scratch buffer in device memory.
+// Tier "highest" (every product at f32 accuracy, nothing stored in bf16)
+// has two routes, chosen by the wrapper from the net's shape before the
+// launch. On the nets the "default" sweeps take: ROUTE_TF32X3
+// (pack32_kernel, sweep32_kernel, wgrad32_kernel, the design of "default"):
+//   * Products: 3xTF32 on wgmma. Each operand is split into hi =
+//     cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi) (2^-22 relative
+//     together) and a product is lo hi + hi lo + hi hi: three tf32 passes
+//     at 495 TFLOP/s, 165 TFLOP/s of f32-accurate work, 2.5x the CUDA
+//     cores' f32 peak. bf16x6 (six passes at 989 TFLOP/s) buys the same
+//     rate with three pieces an operand and twice the operand traffic;
+//     3xTF32 needs two pieces and one wgmma shape. tf32 wgmma reads its
+//     shared-memory operands K-major only, so the weights are packed per
+//     call, as W^T slices for the forward sweep and W slices for the
+//     reverse one, each k8 slice a [rows x (8 hi | 8 lo)] f32 block in the
+//     64-byte swizzle; the activations (A) are read from shared memory by
+//     the threads and split in registers (wgmma takes A from registers).
+//   * Accuracy: the tensor cores' accumulation truncates (it rounds toward
+//     zero), which over the 96 passes of a 256-deep product costs ~2e-5
+//     relative, 20x f32's. So every chunk of two k8 steps goes to a fresh
+//     accumulator, the small terms first, and is added to the product's
+//     accumulator with f32 adds, which round to nearest (~1e-6, f32's).
+//     That needs two accumulators: a warpgroup owns 64 rows by 128
+//     columns, so a tile is 64 rows (K2: 32 points, primal and tangent rows
+//     interleaved as in "default") and both warpgroups read its rows; the
+//     activations stay f32 in shared memory (ten [64 x 32] panels, 80 KB)
+//     beside an 8-slice ring (128 KB) that runs six slices ahead. sigma(100
+//     a) and q are spilled in f32; activate_f32 takes the logarithm of
+//     softplus100 from lg2.approx (2e-9 absolute), not from activate's
+//     polynomial (6e-8).
+//   * K2's weight cotangent: the sweep writes [in; t_in] and [abar; gamma]
+//     as f32 panels (2.0 GB a call at 58,368 points); wgrad32_kernel takes
+//     [128 x 128] output tiles, A = the X columns from registers (split
+//     there), B = G transposed by the block into K-major hi and lo halves,
+//     two of them, so that a chunk's transposition runs while the tensor
+//     cores work on the chunk before; the same per-chunk f32 flush;
+//     split-K partials summed in a fixed order by reduce_kernel:
+//     bit-reproducible.
+//   What bounds it: three tensor-core passes of the function's operations,
+//   0.696 ms for K1 and 2.087 ms for K2 at 58,368 points. In practice each
+//   chunk waits for its passes before the flush, and the epilogues, the
+//   barriers and the loads run between the chunks (PERF.md §6).
+// On any other net: ROUTE_GEMM, every product as one tiled f32 GEMM on the
+// CUDA cores (gemm_kernel, 64x64 tiles) with the same fused epilogues,
+// through a scratch buffer in device memory.
 // Tier "high" (bf16x3, the TPU kernel's _dot3) takes the same route with
 // gemm3_kernel: the same 64x64 tiles, each operand split on its way into
 // shared memory into bf16 hi = bf16(v) and lo = bf16(v - hi), and the
@@ -108,7 +151,10 @@
 
 enum { EPI_STORE = 0, EPI_FWD = 1, EPI_BWD_T = 2, EPI_BWD_P = 3 };
 enum { HEAD_ABS = 0, HEAD_SQUARE = 1, HEAD_SDF = 2 };
-enum { TIER_HIGHEST = 0, TIER_DEFAULT = 1, TIER_HIGH = 2 };
+// how a call runs: the f32 CUDA-core GEMMs (tier "highest" on the nets the
+// sweeps refuse), the bf16 sweeps ("default"), the bf16x3 GEMMs ("high"),
+// the 3xTF32 sweeps ("highest" on the sweeps' nets)
+enum { ROUTE_GEMM = 0, ROUTE_SWEEP = 1, ROUTE_GEMM3 = 2, ROUTE_TF32X3 = 3 };
 // tier "high" products: activation x W (both split), cotangent x W^T (W
 // split), [in; t_in]^T x [abar; gamma] (the left side split)
 enum { P3_FWD = 0, P3_REV = 1, P3_WGRAD = 2 };
@@ -1163,6 +1209,774 @@ __global__ void __launch_bounds__(FT, 1) wgrad_kernel(const __grid_constant__ Wg
 }
 
 // ---------------------------------------------------------------------------
+// tier "highest" on the sweeps' nets: 3xTF32 wgmma sweeps, f32 activations
+// ---------------------------------------------------------------------------
+
+#define XPANEL 8192       // [64 x 32] f32 activation panel: 128-byte rows, 16-byte chunks XOR row % 8
+#define X_PANELS 10       // eight h panels (columns 0..255), two e panels (columns 256..319)
+#define XSLICE 16384      // ring stage: a k8 weight slice of up to 256 rows, [hi 8 | lo 8] f32 a row
+#define X_STAGES 8
+#define X_CHUNK_STEPS 2   // k8 steps of a sweep product between two f32 flushes
+#define X_LEAD 6          // slices in flight ahead of the chunk being consumed (X_LEAD + X_CHUNK_STEPS <= X_STAGES)
+#define X_MAX_SEGS 64
+#define X_CHUNK 4096      // wgrad32: 32 rows of a panel
+#define XW_B 16384        // wgrad32: one [128 x 32] operand half (hi or lo), K-major, 128-byte swizzle
+#define XW_STAGE 32768    // wgrad32: a ring stage, four X chunks and four G chunks
+#define XW_STAGES 4
+#define SWEEP32_SMEM \
+  (512 + X_STAGES * XSLICE + X_PANELS * XPANEL + 4 * 128 + 4 * 4 * WIDTH)
+#define WGRAD32_SMEM (1024 + 4 * XW_B + XW_STAGES * XW_STAGE)
+
+struct XSeg {  // consecutive k8 slices of one product's weights in the packed buffer
+  uint32_t off;   // float offset of the first slice; a slice is rows x 16 floats
+  uint16_t rows;  // N of the product (256 or 64)
+  uint8_t steps;  // k8 slices
+  uint8_t acol8;  // first column of the A operand in the activation panels, over 8
+};
+
+struct PSeg {  // how pack32_kernel fills one XSeg
+  int src, ld, trans, kbase, n0, rows, steps, dst;
+};
+
+struct Pack32Args {
+  int n;
+  PSeg s[X_MAX_SEGS];
+};
+
+struct Sweep32Args {
+  const float *x, *b, *w;  // w: the f32 weights (K1 reads the head's first column)
+  const float* wpk;        // tf32 hi and lo slices of every product, in the order of s
+  int n_layers, multires, head, d_out, n_tiles, n_segs, nx_slots, ng_slots, b_total;
+  float scale;
+  float *udf, *feat, *grad;
+  const float *ubar, *fbar, *gbar;
+  float *xbar, *bpart;
+  uint8_t *xbuf, *gbuf;
+  float4* spill;  // per block: sigma (and q) of every hidden layer, f32
+  FLayer l[F_MAX_LAYERS];
+  XSeg s[X_MAX_SEGS];
+};
+
+struct XItem {  // one output tile of the grouped weight-cotangent GEMM of wgrad32_kernel
+  int xs0, xs1;  // first of the two X panel slots of each warpgroup (xs1 < 0: none)
+  int gs0, n;    // first G panel slot, tile width (256 or 64)
+  int w_off, np, m0, n0;
+  float alpha;
+};
+
+struct Wgrad32Args {
+  const uint8_t *xbuf, *gbuf;
+  float* part;
+  long w_total;
+  int nx_slots, ng_slots, n_tiles;
+  XItem item[MAX_ITEMS];
+};
+
+// tf32 value of v, rounded to nearest with ties away from zero (the 13 low
+// bits of the result are zero)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// h = softplus100(a) and sg = sigma(100 a) in f32: activate's two
+// special-function instructions and a third, h = max(a, 0) + log2(1 + t)
+// ln 2 / 100 on lg2.approx (about 2e-9 absolute in h; activate's
+// polynomial is 6e-8 off at a = 0, 1e-5 of h there); sg to a few ulps.
+__device__ __forceinline__ void activate_f32(float a, float& h, float& sg) {
+  float t, r, l;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fabsf(a) * -144.26950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + t));
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(1.f + t));
+  sg = a >= 0.f ? r : t * r;
+  h = fmaf(l, 6.9314718055994531e-3f, fmaxf(a, 0.f));
+}
+
+// keeps the compiler from reusing a wgmma's A registers before it has completed
+__device__ __forceinline__ void reg_fence4(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 64-byte swizzle, K-major: rows of 64
+// bytes, 8-row groups 512 bytes apart.
+__device__ __forceinline__ uint64_t make_desc64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+// d (+)= a b, wgmma m64nNk8 tf32 x tf32 -> f32 (scale_d 0: d = a b). A from
+// registers, four a thread: rows lane / 4 and lane / 4 + 8 of the warp's
+// 16, columns lane % 4 and lane % 4 + 4; B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  if constexpr (N == 128) wgmma_tf32_n128(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_tf32_n64(d, a, db, scale_d);
+  else wgmma_tf32_n32(d, a, db, scale_d);
+}
+
+// byte offset of f32 element (row, col) in the activation panels
+__device__ __forceinline__ uint32_t xoff(int row, int col) {
+  return (col >> 5) * XPANEL + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
+}
+
+__device__ __forceinline__ float xget(const uint8_t* act, int row, int col) {
+  return *reinterpret_cast<const float*>(act + xoff(row, col));
+}
+
+__device__ __forceinline__ void xput(uint8_t* act, int row, int col, float v) {
+  *reinterpret_cast<float*>(act + xoff(row, col)) = v;
+}
+
+__device__ __forceinline__ void xput2(uint8_t* act, int row, int col, float a, float b) {
+  *reinterpret_cast<float2*>(act + xoff(row, col)) = make_float2(a, b);
+}
+
+// W and W^T slices of every product, split into tf32 hi and lo, in the
+// order the sweep consumes them: item i is (slice j, row r, k); the slice's
+// row r holds [hi(B[k0 + k, r]) k < 8 | lo(...)], B = W (trans) or W^T.
+__global__ void pack32_kernel(const float* w, float* out, const __grid_constant__ Pack32Args P) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  long base = 0;
+  int s = 0;
+  for (; s < P.n; ++s) {
+    const long cnt = (long)P.s[s].steps * P.s[s].rows * 8;
+    if (i < base + cnt) break;
+    base += cnt;
+  }
+  if (s == P.n) return;
+  const PSeg q = P.s[s];
+  const long e = i - base, jr = e >> 3;
+  const int k = (int)(e & 7), r = (int)(jr % q.rows), j = (int)(jr / q.rows);
+  const int kk = q.kbase + 8 * j + k, nn = q.n0 + r;
+  const float v = q.trans ? w[q.src + (long)nn * q.ld + kk] : w[q.src + (long)kk * q.ld + nn];
+  uint32_t hi, lo;
+  split_tf32(v, hi, lo);
+  float* o = out + q.dst + (jr << 4) + k;
+  o[0] = __uint_as_float(hi);
+  o[8] = __uint_as_float(lo);
+}
+
+struct XCursor {  // the next slice to load, and the slices loaded so far
+  int seg, step;
+  uint32_t n;
+};
+
+__device__ __forceinline__ void x_load_next(const Sweep32Args& P, XCursor& c, uint32_t ring,
+                                            int tid) {
+  const XSeg s = P.s[c.seg];
+  const uint32_t dst = ring + (c.n % X_STAGES) * XSLICE;
+  const float* src = P.wpk + s.off + (size_t)c.step * s.rows * 16;
+  for (int i = tid; i < s.rows * 4; i += FT) {
+    const int row = i >> 2, ch = i & 3;
+    cp_async16(dst + row * 64 + ((ch ^ ((row >> 1) & 3)) << 4), src + row * 16 + ch * 4);
+  }
+  cp_async_commit();
+  ++c.n;
+  if (++c.step == s.steps) {
+    c.step = 0;
+    if (++c.seg == P.n_segs) c.seg = 0;
+  }
+}
+
+// this warp's [16 x 8] piece of the activation panels at column col, split
+__device__ __forceinline__ void x_afrag(const uint8_t* act, int wrow, int col, int lane,
+                                        uint32_t* ah, uint32_t* al) {
+  const int r = wrow + (lane >> 2), c = col + (lane & 3);
+  split_tf32(xget(act, r, c), ah[0], al[0]);
+  split_tf32(xget(act, r + 8, c), ah[1], al[1]);
+  split_tf32(xget(act, r, c + 4), ah[2], al[2]);
+  split_tf32(xget(act, r + 8, c + 4), ah[3], al[3]);
+}
+
+// slices it .. it + c - 1 are in: X_LEAD + it groups are committed, X_LEAD - c may pend
+__device__ __forceinline__ void x_wait_slices(int c) {
+  static_assert(X_CHUNK_STEPS <= 4 && X_LEAD + X_CHUNK_STEPS <= X_STAGES, "ring");
+  if (c >= 4) cp_async_wait<(X_LEAD < 4 ? 0 : X_LEAD - 4)>();
+  else if (c == 3) cp_async_wait<(X_LEAD < 3 ? 0 : X_LEAD - 3)>();
+  else if (c == 2) cp_async_wait<X_LEAD - 2>();
+  else cp_async_wait<X_LEAD - 1>();
+}
+
+// acc += one chunk of a sweep product: c <= X_CHUNK_STEPS k8 steps at
+// columns col[0..c) of the activation panels, against the ring's next c
+// slices. The chunk's passes go to a fresh accumulator tmp, the small terms
+// first (a_lo B_hi, a_hi B_lo of every step, then a_hi B_hi), and tmp is
+// added to acc in f32: the tensor cores' accumulation truncates, so each
+// chunk's sum rounds only at its own magnitude, acc rounds to nearest.
+// This warpgroup's N columns are rows g N .. g N + N - 1 of the slices.
+template <int N>
+__device__ __forceinline__ void x_chunk(float* acc, float* tmp, const uint8_t* act, int wrow,
+                                        const int* col, int c, bool last, uint32_t ring,
+                                        const Sweep32Args& P, XCursor& pc, uint32_t& it, int g,
+                                        int tid) {
+  x_wait_slices(c);
+  fence_async();
+  if (last) bulk_reads_done(tid);  // the epilogue may write the panels a dump reads
+  __syncthreads();
+  // slices it + X_LEAD.. go to the stages of slices it + X_LEAD - X_STAGES..,
+  // which the previous chunk read and waited for
+  for (int q = 0; q < c; ++q) x_load_next(P, pc, ring, tid);
+  uint32_t ah[X_CHUNK_STEPS][4], al[X_CHUNK_STEPS][4];
+  uint32_t sb[X_CHUNK_STEPS];
+#pragma unroll
+  for (int q = 0; q < X_CHUNK_STEPS; ++q) {
+    if (q < c) x_afrag(act, wrow, col[q], tid & 31, ah[q], al[q]);
+    sb[q] = ring + ((it + q) % X_STAGES) * XSLICE + g * N * 64;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < X_CHUNK_STEPS; ++q) {
+    if (q < c) {
+      wgmma_tf32<N>(tmp, al[q], make_desc64(sb[q]), q != 0);
+      wgmma_tf32<N>(tmp, ah[q], make_desc64(sb[q] + 32), 1);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < X_CHUNK_STEPS; ++q)
+    if (q < c) wgmma_tf32<N>(tmp, ah[q], make_desc64(sb[q]), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  acc_fence<N / 2>(tmp);
+#pragma unroll
+  for (int q = 0; q < X_CHUNK_STEPS; ++q) {
+    reg_fence4(ah[q]);
+    reg_fence4(al[q]);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += tmp[i];
+  it += c;
+}
+
+// acc[64 x N] = the activation panels' 64 rows times this warpgroup's N
+// columns of the weights of the next nseg (1 or 2) segments, one product
+// over their k8 slices, in chunks of X_CHUNK_STEPS.
+template <int N>
+__device__ __forceinline__ void x_gemm(float* acc, const uint8_t* act, int wrow, int& cs, int nseg,
+                                       uint32_t ring, const Sweep32Args& P, XCursor& pc,
+                                       uint32_t& it, int g, int tid) {
+  float tmp[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const XSeg sa = P.s[cs], sb = nseg > 1 ? P.s[cs + 1] : sa;
+  const int na = sa.steps, total = na + (nseg > 1 ? sb.steps : 0);
+  for (int j = 0; j < total; j += X_CHUNK_STEPS) {
+    const int c = total - j < X_CHUNK_STEPS ? total - j : X_CHUNK_STEPS;
+    int col[X_CHUNK_STEPS];
+#pragma unroll
+    for (int q = 0; q < X_CHUNK_STEPS; ++q) {
+      const int k = j + q;
+      col[q] = k < na ? 8 * (sa.acol8 + k) : 8 * (sb.acol8 + k - na);
+    }
+    x_chunk<N>(acc, tmp, act, wrow, col, c, j + c == total, ring, P, pc, it, g, tid);
+  }
+  cs += nseg;
+}
+
+__device__ __forceinline__ void x_dump(uint32_t src, int panels, uint8_t* dst, int tid) {
+  if (tid == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+                 "r"(src), "r"(panels * XPANEL)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// K1 (BWD = false): a tile is 64 points. K2 (BWD = true): a tile is 32
+// points, primal and tangent rows interleaved by eights, as sweep_kernel's.
+// Both warpgroups read the tile's 64 rows; warpgroup g owns columns
+// 128 g.. of the 256-wide products and 32 g.. of the 64-wide ones.
+template <bool BWD>
+__global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ Sweep32Args P) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t ring = (raw_addr + 511u) & ~511u;
+  const uint32_t act_s = ring + X_STAGES * XSLICE;
+  uint8_t* act = smem_raw + (act_s - raw_addr);  // the activation panels
+  float* crow = reinterpret_cast<float*>(act + X_PANELS * XPANEL);
+  float* arow = crow + 64;
+  float* bwarp = crow + 128;  // K2: [4 warps of a warpgroup][WIDTH] partial b̄
+
+  const int tid = threadIdx.x, lane = tid & 31, wq = (tid >> 5) & 3, g = tid >> 7;
+  const int wrow = wq * 16;           // this warp's first row
+  const int r0 = wrow + (lane >> 2);  // row of acc[4i], acc[4i+1]; acc[4i+2..3]: r0 + 8
+  const int cq = 2 * (lane & 3);
+  const int cw = g * 128, ce = g * 32;  // this warpgroup's first column, 256- and 64-wide
+  const int L = P.n_layers, mr = P.multires;
+  const float scale = P.scale;
+  const int pts = BWD ? 32 : 64;
+  float* bpart = BWD ? P.bpart + (long)blockIdx.x * P.b_total : nullptr;
+
+  if (BWD)
+    for (int i = tid; i < P.b_total; i += FT) bpart[i] = 0.f;
+  __syncthreads();
+
+  float acc[64], eacc[16];
+  uint32_t it = 0;
+  XCursor pc = {0, 0, 0u};
+  for (int q = 0; q < X_LEAD; ++q) x_load_next(P, pc, ring, tid);
+
+  for (int tile = blockIdx.x; tile < P.n_tiles; tile += gridDim.x) {
+    const long p0 = (long)tile * pts;
+    int cs = 0;  // the next segment of the products
+
+    // the embedding (and its tangent) into the e panels, columns 256..319
+    for (int item = tid; item < pts * (mr + 1); item += FT) {
+      const int pl = item / (mr + 1), k = item % (mr + 1);
+      const int row = BWD ? ((pl >> 3) * 16 + (pl & 7)) : pl;
+      float y[3], gb[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        y[i] = scale * P.x[(p0 + pl) * 3 + i];
+        gb[i] = BWD ? P.gbar[(p0 + pl) * 3 + i] : 0.f;
+      }
+      if (k < mr) {
+        const float f = (float)(1 << k);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          float sn, cs_;
+          sincosf(y[i] * f, &sn, &cs_);
+          xput(act, row, WIDTH + 3 + 6 * k + i, sn);
+          xput(act, row, WIDTH + 6 + 6 * k + i, cs_);
+          if (BWD) {
+            xput(act, row + 8, WIDTH + 3 + 6 * k + i, scale * f * cs_ * gb[i]);
+            xput(act, row + 8, WIDTH + 6 + 6 * k + i, -scale * f * sn * gb[i]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          xput(act, row, WIDTH + i, y[i]);
+          if (BWD) xput(act, row + 8, WIDTH + i, scale * gb[i]);
+        }
+        for (int c = 3 + 6 * mr; c < PE_W; ++c) {
+          xput(act, row, WIDTH + c, 0.f);
+          if (BWD) xput(act, row + 8, WIDTH + c, 0.f);
+        }
+      }
+    }
+    fence_async();
+    __syncthreads();
+    if (BWD) x_dump(act_s + 8 * XPANEL, 2, P.xbuf + ((size_t)tile * P.nx_slots) * XPANEL, tid);
+
+    // forward sweep over the hidden layers
+    for (int l = 0; l < L - 1; ++l) {
+      const FLayer Ly = P.l[l];
+      x_gemm<128>(acc, act, wrow, cs, (l > 0) + (l == 0 || Ly.skip), ring, P, pc, it, g, tid);
+      __syncthreads();  // the other warpgroup is done reading the panels this layer overwrites
+      const float* __restrict__ bias = P.b + Ly.b_off;
+      const float alpha = Ly.alpha;
+      float4* sp = P.spill + ((size_t)(blockIdx.x * (L - 1) + l) * 16) * FT + tid;
+#pragma unroll
+      for (int i4 = 0; i4 < 16; ++i4) {
+        const int col = cw + i4 * 8 + cq;
+        const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+        float h0, h1, s0, s1;
+        activate_f32(alpha * acc[4 * i4] + b0, h0, s0);
+        activate_f32(alpha * acc[4 * i4 + 1] + b1, h1, s1);
+        xput2(act, r0, col, h0, h1);
+        if (!BWD) {
+          float h2, h3, s2, s3;
+          activate_f32(alpha * acc[4 * i4 + 2] + b0, h2, s2);
+          activate_f32(alpha * acc[4 * i4 + 3] + b1, h3, s3);
+          xput2(act, r0 + 8, col, h2, h3);
+          sp[(size_t)i4 * FT] = make_float4(s0, s1, s2, s3);
+        } else {  // row r0 + 8: the tangent t_a of row r0's point
+          const float t0 = alpha * acc[4 * i4 + 2], t1 = alpha * acc[4 * i4 + 3];
+          xput2(act, r0 + 8, col, s0 * t0, s1 * t1);
+          sp[(size_t)i4 * FT] = make_float4(s0, s1, 100.f * s0 * (1.f - s0) * t0,
+                                            100.f * s1 * (1.f - s1) * t1);
+        }
+      }
+      fence_async();
+      __syncthreads();
+      if (BWD)
+        x_dump(act_s, 8, P.xbuf + ((size_t)tile * P.nx_slots + P.l[l + 1].xslot) * XPANEL, tid);
+    }
+
+    // the head
+    const FLayer H = P.l[L - 1];
+    const float* hbias = P.b + H.b_off;
+    if (!BWD) {
+      // columns 256.. (features only), then columns 0..255
+      x_gemm<32>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+#pragma unroll
+      for (int i4 = 0; i4 < 4; ++i4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = WIDTH + ce + i4 * 8 + cq + (j & 1), row = r0 + (j >> 1) * 8;
+          if (col < P.d_out)
+            P.feat[(p0 + row) * (P.d_out - 1) + col - 1] = H.alpha * acc[4 * i4 + j] + hbias[col];
+        }
+      }
+      x_gemm<128>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+#pragma unroll
+      for (int i4 = 0; i4 < 16; ++i4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = cw + i4 * 8 + cq + (j & 1), row = r0 + (j >> 1) * 8;
+          const float v = H.alpha * acc[4 * i4 + j] + hbias[col];
+          if (col == 0) {
+            P.udf[p0 + row] = head_phi(v, P.head) / scale;
+            crow[row] = head_dphi(v, P.head) / scale;
+          } else if (col < P.d_out) {
+            P.feat[(p0 + row) * (P.d_out - 1) + col - 1] = v;
+          }
+        }
+      }
+      __syncthreads();
+      // gamma_{L-2} = sigma_{L-2} (alpha c W_head[:, 0]): the seed c e0 needs no GEMM
+      const float* wh = P.w + H.w_off;  // W_head [kp x np]; column 0 is wh[k np]
+      const float4* sp = P.spill + ((size_t)(blockIdx.x * (L - 1) + L - 2) * 16) * FT + tid;
+      const float ca = crow[r0], cb = crow[r0 + 8];
+#pragma unroll 4
+      for (int i4 = 0; i4 < 16; ++i4) {
+        const int col = cw + i4 * 8 + cq;
+        const float w0 = __ldg(wh + (long)col * H.np), w1 = __ldg(wh + (long)(col + 1) * H.np);
+        const float4 s = sp[(size_t)i4 * FT];
+        xput2(act, r0, col, s.x * (H.alpha * (ca * w0)), s.y * (H.alpha * (ca * w1)));
+        xput2(act, r0 + 8, col, s.z * (H.alpha * (cb * w0)), s.w * (H.alpha * (cb * w1)));
+      }
+    } else {
+      // only column 0 of the head's forward is read: raw and its tangent
+      x_gemm<32>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+      if (g == 0 && cq == 0) {
+        const int pl = (r0 >> 4) * 8 + (r0 & 7);
+        const float raw = H.alpha * acc[0] + hbias[0], tan0 = H.alpha * acc[2];
+        const float cc = head_dphi(raw, P.head) / scale;
+        crow[pl] = cc;
+        arow[pl] = P.ubar[p0 + pl] * cc + (P.head == HEAD_SQUARE ? 2.f / scale : 0.f) * tan0;
+      }
+      __syncthreads();
+      // G_{L-1} over all 320 columns: abar = [ubar c + (phi''/s) T, fbar] on
+      // primal rows, gamma = c e0 on tangent rows
+      for (int item = tid; item < 64 * (X_PANELS * 4); item += FT) {
+        const int row = item / (X_PANELS * 4), ch = item % (X_PANELS * 4);
+        const int pl = (row >> 4) * 8 + (row & 7);
+        const bool tangent = (row >> 3) & 1;
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int col = ch * 8 + e;
+          if (tangent) v[e] = col == 0 ? crow[pl] : 0.f;
+          else if (col == 0) v[e] = arow[pl];
+          else v[e] = col < P.d_out ? P.fbar[(p0 + pl) * (P.d_out - 1) + col - 1] : 0.f;
+        }
+        *reinterpret_cast<float4*>(act + xoff(row, ch * 8)) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(act + xoff(row, ch * 8 + 4)) = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      for (int col = tid; col < H.np; col += FT) {
+        float s = 0.f;
+        for (int pl = 0; pl < 32; ++pl) {
+          if (col == 0) s += arow[pl];
+          else if (col < P.d_out) s += P.fbar[(p0 + pl) * (P.d_out - 1) + col - 1];
+        }
+        bpart[H.b_off + col] += s;
+      }
+    }
+    fence_async();
+    __syncthreads();
+
+    // reverse sweep
+#pragma unroll
+    for (int i = 0; i < 16; ++i) eacc[i] = 0.f;
+    for (int l = BWD ? L - 1 : L - 2; l >= 0; --l) {
+      const FLayer Ly = P.l[l];
+      if (BWD)
+        x_dump(act_s, l == L - 1 ? X_PANELS : 8,
+               P.gbuf + ((size_t)tile * P.ng_slots + Ly.gslot) * XPANEL, tid);
+      if (l == 0 || Ly.skip) {  // the e-part of alpha G W^T: eps (and ebar)
+        x_gemm<32>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) eacc[i] += Ly.alpha * acc[i];
+      }
+      if (l == 0) break;
+      x_gemm<128>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+      __syncthreads();  // the other warpgroup is done reading the panels this layer overwrites
+      const float alpha = Ly.alpha;
+      const float4* sp = P.spill + ((size_t)(blockIdx.x * (L - 1) + l - 1) * 16) * FT + tid;
+#pragma unroll
+      for (int i4 = 0; i4 < 16; ++i4) {
+        const int col = cw + i4 * 8 + cq;
+        const float4 s = sp[(size_t)i4 * FT];
+        const float d0 = alpha * acc[4 * i4], d1 = alpha * acc[4 * i4 + 1];
+        const float d2 = alpha * acc[4 * i4 + 2], d3 = alpha * acc[4 * i4 + 3];
+        if (!BWD) {  // s: sigma of rows r0 (x, y) and r0 + 8 (z, w)
+          xput2(act, r0, col, s.x * d0, s.y * d1);
+          xput2(act, r0 + 8, col, s.z * d2, s.w * d3);
+        } else {  // s: sigma (x, y) and q (z, w); d0, d1: abar', d2, d3: gamma'
+          float ab0 = s.x * d0 + s.z * d2, ab1 = s.y * d1 + s.w * d3;
+          xput2(act, r0, col, ab0, ab1);
+          xput2(act, r0 + 8, col, s.x * d2, s.y * d3);
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1) {
+            ab0 += __shfl_xor_sync(0xffffffffu, ab0, m);
+            ab1 += __shfl_xor_sync(0xffffffffu, ab1, m);
+          }
+          if (lane < 4) {
+            bwarp[wq * WIDTH + col] = ab0;
+            bwarp[wq * WIDTH + col + 1] = ab1;
+          }
+        }
+      }
+      fence_async();
+      __syncthreads();
+      if (BWD) {  // b̄_{l-1} of this tile, warps summed in order
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) s += bwarp[w * WIDTH + tid];
+        bpart[P.l[l - 1].b_off + tid] += s;
+      }
+    }
+
+    // grad = s J_PE^T eps, or x̄ = s J_PE^T ebar + s^2 gbar (PE'' . eps)
+    bulk_reads_done(tid);
+    __syncthreads();
+    float* E = reinterpret_cast<float*>(act);
+#pragma unroll
+    for (int i4 = 0; i4 < 4; ++i4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        E[(r0 + (j >> 1) * 8) * E_LD + ce + i4 * 8 + cq + (j & 1)] = eacc[4 * i4 + j];
+    }
+    __syncthreads();
+    for (int item = tid; item < pts * 3; item += FT) {
+      const int pl = item / 3, i = item % 3;
+      const int row = BWD ? ((pl >> 3) * 16 + (pl & 7)) : pl;
+      const float* eb = E + row * E_LD;                   // K1: eps; K2: ebar
+      const float* ep = E + (row + (BWD ? 8 : 0)) * E_LD;  // eps
+      const float y = scale * P.x[(p0 + pl) * 3 + i];
+      float first = eb[i], second = 0.f;
+      for (int k = 0, j = 3; k < mr; ++k, j += 6) {
+        const float f = (float)(1 << k);
+        float sn, cs_;
+        sincosf(y * f, &sn, &cs_);
+        first += f * cs_ * eb[j + i] - f * sn * eb[j + 3 + i];
+        second += -f * f * sn * ep[j + i] - f * f * cs_ * ep[j + 3 + i];
+      }
+      if (BWD)
+        P.xbar[(p0 + pl) * 3 + i] =
+            scale * first + scale * scale * P.gbar[(p0 + pl) * 3 + i] * second;
+      else
+        P.grad[(p0 + pl) * 3 + i] = scale * first;
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// wgrad32_kernel's A operand for one chunk: rows m of this warpgroup's 64 X
+// columns, k the chunk's 32 rows, split in registers.
+__device__ __forceinline__ void w_afrag(const uint8_t* xs, int wq, int lane, uint32_t (*ah)[4],
+                                        uint32_t (*al)[4]) {
+  const int m = wq * 16 + (lane >> 2), tig = lane & 3;
+  auto xv = [&](int k, int mm) {
+    return *reinterpret_cast<const float*>(xs + (mm >> 5) * X_CHUNK + k * 128 +
+                                           ((((mm & 31) >> 2) ^ (k & 7)) << 4) + (mm & 3) * 4);
+  };
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k = kk * 8 + tig;
+    split_tf32(xv(k, m), ah[kk][0], al[kk][0]);
+    split_tf32(xv(k, m + 8), ah[kk][1], al[kk][1]);
+    split_tf32(xv(k + 4, m), ah[kk][2], al[kk][2]);
+    split_tf32(xv(k + 4, m + 8), ah[kk][3], al[kk][3]);
+  }
+}
+
+// The products of one chunk into a fresh tmp, the small terms first; not
+// waited for here.
+template <int N>
+__device__ __forceinline__ void w_issue(float* tmp, uint32_t (*ah)[4], uint32_t (*al)[4],
+                                        uint32_t b_hi, uint32_t b_lo) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32<N>(tmp, al[kk], make_desc(b_hi + kk * 32, 16, 1024), kk != 0);
+    wgmma_tf32<N>(tmp, ah[kk], make_desc(b_lo + kk * 32, 16, 1024), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tf32<N>(tmp, ah[kk], make_desc(b_hi + kk * 32, 16, 1024), 1);
+  wgmma_commit();
+}
+
+// Waits for the chunk's products and adds tmp to acc in f32 (as x_chunk).
+template <int N>
+__device__ __forceinline__ void w_finish(float* acc, float* tmp, uint32_t (*ah)[4],
+                                         uint32_t (*al)[4]) {
+  wgmma_wait<0>();
+  acc_fence<N / 2>(tmp);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    reg_fence4(ah[kk]);
+    reg_fence4(al[kk]);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += tmp[i];
+}
+
+// One [128 x N] tile (N = 128 or 64) of W̄_l = alpha [in; t_in]^T [abar;
+// gamma] over the row tiles of split blockIdx.y, from the f32 panels the
+// sweep wrote, in chunks of 32 rows: A = the X columns of a warpgroup, from
+// registers (split there); B = G, transposed by the block into K-major tf32
+// hi and lo halves, two buffers, so that a chunk's transposition runs while
+// the tensor cores work on the one before. Partial sums go to
+// part[blockIdx.y].
+template <int N>
+__device__ __forceinline__ void wgrad32_tile(const Wgrad32Args& P, const XItem& I, uint8_t* base,
+                                             uint32_t sbase) {
+  uint8_t* stages = base + 4 * XW_B;
+  const int tid = threadIdx.x, lane = tid & 31, wq = (tid >> 5) & 3, g = tid >> 7;
+  const int t0 = (int)((long)P.n_tiles * blockIdx.y / gridDim.y);
+  const int t1 = (int)((long)P.n_tiles * (blockIdx.y + 1) / gridDim.y);
+  const int n_steps = (t1 - t0) * 2;  // 32 rows of the 64-row tiles a step
+  const int nm = I.xs1 >= 0 ? 2 : 1;
+  const bool active = g < nm;
+
+  float acc[N / 2], tmp[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  uint32_t ah[4][4], al[4][4];
+
+  // stage: X chunks of warpgroup 0 (two panels), of warpgroup 1, then the G chunks
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const size_t tile = t0 + (step >> 1);
+      const uint32_t half = (step & 1) * X_CHUNK;
+      const uint32_t dst = smem_u32(stages) + (step % XW_STAGES) * XW_STAGE;
+      for (int c = tid; c < (2 * nm + N / 32) * (X_CHUNK / 16); c += FT) {
+        const int pn = c / (X_CHUNK / 16);
+        const uint32_t o = (c % (X_CHUNK / 16)) * 16;
+        const uint8_t* src =
+            pn < 2 * nm
+                ? P.xbuf + (tile * P.nx_slots + (pn >= 2 ? I.xs1 : I.xs0) + (pn & 1)) * XPANEL
+                : P.gbuf + (tile * P.ng_slots + I.gs0 + (pn - 2 * nm)) * XPANEL;
+        const int so = pn < 2 * nm ? pn : 4 + pn - 2 * nm;  // slot in the stage
+        cp_async16(dst + so * X_CHUNK + o, src + half + o);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int q = 0; q < XW_STAGES - 1; ++q) load_step(q);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<XW_STAGES - 2>();
+    // this step's chunks are in; every thread is done with step - 1's stage
+    // and has waited for step - 2's products, which read this step's B buffer
+    __syncthreads();
+    load_step(step + XW_STAGES - 1);
+    const uint8_t* st = stages + (step % XW_STAGES) * XW_STAGE;
+    const uint32_t bh = sbase + (step & 1) * 2 * XW_B;
+    {  // B: G^T rows n, the chunk's 32 rows as k, split; 4 k a thread and pass
+      uint8_t* bb = base + (step & 1) * 2 * XW_B;
+      const uint8_t* gs = st + 4 * X_CHUNK;
+      constexpr int per = FT / N;  // threads on one n
+      const int n = tid % N, c0 = (tid / N) * (8 / per);
+#pragma unroll
+      for (int c = c0; c < c0 + 8 / per; ++c) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = 4 * c + i;
+          v[i] = *reinterpret_cast<const float*>(gs + (n >> 5) * X_CHUNK + k * 128 +
+                                                 ((((n & 31) >> 2) ^ (k & 7)) << 4) + (n & 3) * 4);
+        }
+        uint32_t h[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(v[i], h[i], lo[i]);
+        const int o = n * 128 + ((c ^ (n & 7)) << 4);
+        *reinterpret_cast<uint4*>(bb + o) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(bb + XW_B + o) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+    fence_async();
+    if (active && step > 0) w_finish<N>(acc, tmp, ah, al);
+    __syncthreads();  // B of this step is in
+    if (active) {
+      w_afrag(st + g * 2 * X_CHUNK, wq, lane, ah, al);
+      w_issue<N>(tmp, ah, al, bh, bh + XW_B);
+    }
+  }
+  if (active && n_steps > 0) w_finish<N>(acc, tmp, ah, al);
+  cp_async_wait<0>();
+  if (!active) return;
+  float* out = P.part + (size_t)blockIdx.y * P.w_total + I.w_off +
+               (size_t)(I.m0 + g * 64 + wq * 16 + (lane >> 2)) * I.np + I.n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i4 = 0; i4 < N / 8; ++i4) {
+    *reinterpret_cast<float2*>(out + i4 * 8) =
+        make_float2(I.alpha * acc[4 * i4], I.alpha * acc[4 * i4 + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)8 * I.np + i4 * 8) =
+        make_float2(I.alpha * acc[4 * i4 + 2], I.alpha * acc[4 * i4 + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(FT, 1) wgrad32_kernel(const __grid_constant__ Wgrad32Args P) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t sbase = (raw_addr + 1023u) & ~1023u;
+  uint8_t* base = smem_raw + (sbase - raw_addr);
+  const XItem I = P.item[blockIdx.x];
+  if (I.n == 128) wgrad32_tile<128>(P, I, base, sbase);
+  else wgrad32_tile<64>(P, I, base, sbase);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1425,11 +2239,12 @@ void backward_f32(const Net& net, const float* xf, const float* wf, const float*
 // ----- tier "default" -----
 
 // The sweeps take the widths they were written for: a 64-wide embedding
-// first, 256-wide hidden layers, skips into hidden layers, a 320-wide head.
-bool sweep_takes(const Net& net, int multires, int rows) {
+// first, 256-wide hidden layers, skips into hidden layers, a 320-wide head;
+// rows in whole tiles (128 on ROUTE_SWEEP, 64 on ROUTE_TF32X3).
+bool sweep_takes(const Net& net, int multires, int rows, int row_tile) {
   if (net.n < 2 || net.n > F_MAX_LAYERS || net.pe_w != PE_W || 3 + 6 * multires > PE_W)
     return false;
-  if (rows <= 0 || rows % 128) return false;
+  if (rows <= 0 || rows % row_tile) return false;
   for (int i = 0; i < net.n; ++i) {
     const Layer& L = net.l[i];
     if (L.kh != (i == 0 ? 0 : WIDTH)) return false;
@@ -1563,6 +2378,177 @@ int fill_items(const Net& net, const SweepArgs& a, WItem* items) {
   return n;
 }
 
+// ----- tier "highest" on the sweeps' nets (route ROUTE_TF32X3) -----
+
+struct X32Scratch {
+  float* wpk;
+  float4* spill;
+  uint8_t *xbuf, *gbuf;
+  float *part, *bpart;
+  int grid, n_tiles, nx_slots, ng_slots;
+};
+
+// k8 slices of the embedding's columns, 3 + 6 multires of them real
+int x_ne(int multires) { return (3 + 6 * multires + 7) / 8; }
+
+// The products in the order sweep32_kernel<backward> consumes them (forward
+// W^T slices, the head, then the reverse sweep's W slices), and how
+// pack32_kernel fills them. Returns the floats of the packed buffer.
+long fill_sweep32(const Net& net, bool backward, int d_out, int multires, Sweep32Args* a,
+                  Pack32Args* p) {
+  int n = 0;
+  long dst = 0;
+  auto add = [&](const Layer& L, int trans, int kbase, int n0, int rows, int steps, int acol) {
+    XSeg& s = a->s[n];
+    s.off = (uint32_t)dst;
+    s.rows = (uint16_t)rows;
+    s.steps = (uint8_t)steps;
+    s.acol8 = (uint8_t)(acol / 8);
+    p->s[n] = {(int)L.w_off, L.np, trans, kbase, n0, rows, steps, (int)dst};
+    dst += (long)steps * rows * 16;
+    ++n;
+  };
+  a->n_layers = net.n;
+  a->b_total = (int)net.b_total;
+  for (int i = 0; i < net.n; ++i) {
+    const Layer& L = net.l[i];
+    FLayer& F = a->l[i];
+    F.np = L.np; F.skip = L.skip; F.alpha = L.alpha;
+    F.b_off = (int)L.b_off; F.w_off = (int)L.w_off;
+    F.xslot = i == 0 ? 0 : 2 + 8 * (i - 1);
+    F.gslot = 8 * i;
+  }
+  const int ne = x_ne(multires);
+  for (int i = 0; i < net.n - 1; ++i) {
+    const Layer& L = net.l[i];
+    if (i > 0) add(L, 0, 0, 0, WIDTH, L.kh / 8, 0);
+    if (i == 0 || L.skip) add(L, 0, L.kh, 0, WIDTH, ne, WIDTH);
+  }
+  const Layer& H = net.l[net.n - 1];
+  if (backward) {
+    add(H, 0, 0, 0, 64, H.kp / 8, 0);
+  } else {
+    add(H, 0, 0, WIDTH, 64, H.kp / 8, 0);
+    add(H, 0, 0, 0, WIDTH, H.kp / 8, 0);
+  }
+  for (int i = backward ? net.n - 1 : net.n - 2; i >= 0; --i) {
+    const Layer& L = net.l[i];
+    const int kg = i == net.n - 1 ? (d_out + 7) / 8 : L.np / 8;  // G's columns, over 8
+    if (i == 0 || L.skip) add(L, 1, 0, L.kh, 64, kg, 0);
+    if (i > 0) add(L, 1, 0, 0, WIDTH, kg, 0);
+  }
+  a->n_segs = n;
+  p->n = n;
+  return dst;
+}
+
+// byte count; fills fs when base is given
+size_t carve_x32(const Net& net, int rows, bool backward, int splits, int d_out, int multires,
+                 uint8_t* base, X32Scratch* fs) {
+  Sweep32Args a = {};
+  Pack32Args p = {};
+  const long packed = fill_sweep32(net, backward, d_out, multires, &a, &p);
+  X32Scratch f = {};
+  f.n_tiles = rows / (backward ? 32 : 64);
+  const int sms = sm_count();
+  f.grid = f.n_tiles < sms ? f.n_tiles : sms;
+  f.nx_slots = 2 + 8 * (net.n - 1);
+  f.ng_slots = 8 * (net.n - 1) + X_PANELS;
+  size_t off = 0;
+  f.wpk = (float*)(base + off);
+  off += round256(4 * (size_t)packed);
+  f.spill = (float4*)(base + off);
+  off += (size_t)f.grid * (net.n - 1) * 16 * FT * 16;
+  if (backward) {
+    f.xbuf = base + off;
+    off += (size_t)f.n_tiles * f.nx_slots * XPANEL;
+    f.gbuf = base + off;
+    off += (size_t)f.n_tiles * f.ng_slots * XPANEL;
+    f.part = (float*)(base + off);
+    off += round256(4 * (size_t)splits * net.w_total);
+    f.bpart = (float*)(base + off);
+    off += round256(4 * (size_t)f.grid * net.b_total);
+  }
+  if (fs) *fs = f;
+  return off;
+}
+
+// the output tiles of wgrad32_kernel: 128 X columns (64 for the embedding)
+// by 128 G columns (the head's last 64 apart)
+int fill_items32(const Net& net, const Sweep32Args& a, XItem* items) {
+  int n = 0;
+  for (int i = 0; i < net.n; ++i) {
+    const Layer& L = net.l[i];
+    const int h_pan = L.kh / 32;
+    for (int mt = 0; mt <= h_pan; mt += 4) {
+      const bool e_tile = mt == h_pan;
+      if (e_tile && !(i == 0 || L.skip)) break;
+      for (int n0 = 0; n0 < L.np; n0 += 128) {
+        if (n >= MAX_ITEMS) return -1;
+        XItem& I = items[n++];
+        I.xs0 = e_tile ? 0 : a.l[i].xslot + mt;
+        I.xs1 = !e_tile && mt + 2 < h_pan ? a.l[i].xslot + mt + 2 : -1;
+        I.gs0 = a.l[i].gslot + n0 / 32;
+        I.n = L.np - n0 >= 128 ? 128 : 64;
+        I.w_off = (int)L.w_off;
+        I.np = L.np;
+        I.m0 = e_tile ? L.kh : 32 * mt;
+        I.n0 = n0;
+        I.alpha = L.alpha;
+      }
+    }
+  }
+  return n;
+}
+
+int forward_x32(const Net& net, const float* x, const float* w, const float* b, int multires,
+                float scale, int head, int d_out, int rows, float* udf, float* feat, float* grad,
+                uint8_t* scratch, cudaStream_t st) {
+  X32Scratch fs;
+  carve_x32(net, rows, false, 0, d_out, multires, scratch, &fs);
+  Sweep32Args a = {};
+  Pack32Args p = {};
+  const long packed = fill_sweep32(net, false, d_out, multires, &a, &p);
+  pack32_kernel<<<(unsigned)((packed / 2 + 255) / 256), 256, 0, st>>>(w, fs.wpk, p);
+  a.x = x; a.b = b; a.w = w; a.wpk = fs.wpk;
+  a.multires = multires; a.head = head; a.d_out = d_out; a.scale = scale;
+  a.n_tiles = fs.n_tiles;
+  a.udf = udf; a.feat = feat; a.grad = grad;
+  a.spill = fs.spill;
+  sweep32_kernel<false><<<fs.grid, FT, SWEEP32_SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int backward_x32(const Net& net, const float* x, const float* w, const float* b, int multires,
+                 float scale, int head, int d_out, int rows, const float* ubar, const float* fbar,
+                 const float* gbar, float* xbar, float* wbar, float* bbar, uint8_t* scratch,
+                 int splits, cudaStream_t st) {
+  X32Scratch fs;
+  carve_x32(net, rows, true, splits, d_out, multires, scratch, &fs);
+  Sweep32Args a = {};
+  Pack32Args p = {};
+  const long packed = fill_sweep32(net, true, d_out, multires, &a, &p);
+  Wgrad32Args g = {};
+  const int n_items = fill_items32(net, a, g.item);
+  if (n_items < 0) return cudaErrorInvalidValue;
+  pack32_kernel<<<(unsigned)((packed / 2 + 255) / 256), 256, 0, st>>>(w, fs.wpk, p);
+  a.x = x; a.b = b; a.w = w; a.wpk = fs.wpk;
+  a.multires = multires; a.head = head; a.d_out = d_out; a.scale = scale;
+  a.n_tiles = fs.n_tiles; a.nx_slots = fs.nx_slots; a.ng_slots = fs.ng_slots;
+  a.ubar = ubar; a.fbar = fbar; a.gbar = gbar;
+  a.xbar = xbar; a.bpart = fs.bpart;
+  a.xbuf = fs.xbuf; a.gbuf = fs.gbuf; a.spill = fs.spill;
+  sweep32_kernel<true><<<fs.grid, FT, SWEEP32_SMEM, st>>>(a);
+  g.xbuf = fs.xbuf; g.gbuf = fs.gbuf; g.part = fs.part; g.w_total = net.w_total;
+  g.nx_slots = fs.nx_slots; g.ng_slots = fs.ng_slots; g.n_tiles = fs.n_tiles;
+  wgrad32_kernel<<<dim3(n_items, splits), FT, WGRAD32_SMEM, st>>>(g);
+  reduce_kernel<<<(unsigned)((net.w_total + 255) / 256), 256, 0, st>>>(fs.part, splits,
+                                                                       net.w_total, wbar);
+  reduce_kernel<<<(unsigned)((net.b_total + 255) / 256), 256, 0, st>>>(fs.bpart, fs.grid,
+                                                                       net.b_total, bbar);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The sweeps' dynamic shared memory limits, set once per device (at the
@@ -1581,43 +2567,63 @@ static cudaError_t set_smem_attributes() {
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)WGRAD_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sweep32_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SWEEP32_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sweep32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SWEEP32_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wgrad32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)WGRAD32_SMEM);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
 
 extern "C" {
 
-// Bytes of scratch one call needs at tier (TIER_HIGHEST, TIER_DEFAULT,
-// TIER_HIGH); 0 if the kernels do not take this net.
+// Bytes of scratch one call needs on route (ROUTE_*); 0 if the route does
+// not take this net or row count.
 size_t fd_scratch_bytes(int n_layers, const void* dims, int pe_w, int multires, int rows,
-                        int backward, int splits, int tier) {
+                        int backward, int splits, int d_out, int route) {
   Net net;
   if (!make_net(n_layers, (const int*)dims, pe_w, &net)) return 0;
-  if (tier == TIER_DEFAULT) {
-    if (!sweep_takes(net, multires, rows) || splits < 1) return 0;
-    return carve_fast(net, rows, backward != 0, splits, nullptr, nullptr);
+  if (route == ROUTE_SWEEP || route == ROUTE_TF32X3) {
+    if (!sweep_takes(net, multires, rows, route == ROUTE_SWEEP ? 128 : 64) || splits < 1 ||
+        d_out <= WIDTH)
+      return 0;
+    if (route == ROUTE_SWEEP) return carve_fast(net, rows, backward != 0, splits, nullptr, nullptr);
+    return carve_x32(net, rows, backward != 0, splits, d_out, multires, nullptr, nullptr);
   }
-  if (rows % BM || (tier != TIER_HIGHEST && tier != TIER_HIGH)) return 0;
+  if (rows % BM || (route != ROUTE_GEMM && route != ROUTE_GEMM3)) return 0;
   return sizeof(float) * carve(net, backward ? 2L * rows : rows, backward ? splits : 0,
-                               tier == TIER_HIGH, nullptr, nullptr);
+                               route == ROUTE_GEMM3, nullptr, nullptr);
 }
 
-// K1. x [rows,3] (rows a multiple of 64, of 128 at tier "default"); outputs
+// K1. x [rows,3] (rows a multiple of 64, of 128 on the sweeps); outputs
 // udf [rows,1], feat [rows,d_out-1], grad [rows,3].
 int fd_forward(const void* x, const void* w, const void* b, int n_layers, const void* dims,
-               int pe_w, int multires, float scale, int head, int d_out, int rows, int tier,
+               int pe_w, int multires, float scale, int head, int d_out, int rows, int route,
                void* udf, void* feat, void* grad, void* scratch, void* stream) {
   Net net;
   if (rows % BM || !make_net(n_layers, (const int*)dims, pe_w, &net)) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (tier == TIER_HIGHEST || tier == TIER_HIGH) {
+  if (route == ROUTE_GEMM || route == ROUTE_GEMM3) {
     forward_f32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale, head,
                 d_out, rows, (float*)udf, (float*)feat, (float*)grad, (float*)scratch,
-                tier == TIER_HIGH, st);
+                route == ROUTE_GEMM3, st);
     return (int)cudaGetLastError();
   }
-  if (tier != TIER_DEFAULT) return cudaErrorInvalidValue;
-  if (!sweep_takes(net, multires, rows) || d_out > net.l[net.n - 1].np) return cudaErrorInvalidValue;
+  if (route != ROUTE_SWEEP && route != ROUTE_TF32X3) return cudaErrorInvalidValue;
+  if (!sweep_takes(net, multires, rows, route == ROUTE_SWEEP ? 128 : 64) ||
+      d_out > net.l[net.n - 1].np || d_out <= WIDTH)
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem_attributes();
+  if (err != cudaSuccess) return (int)err;
+  if (route == ROUTE_TF32X3)
+    return forward_x32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale,
+                       head, d_out, rows, (float*)udf, (float*)feat, (float*)grad,
+                       (uint8_t*)scratch, st);
   FastScratch fs;
   carve_fast(net, rows, false, 0, (uint8_t*)scratch, &fs);
   pack_weights(net, (const float*)w, fs.w16, st);
@@ -1628,8 +2634,6 @@ int fd_forward(const void* x, const void* w, const void* b, int n_layers, const 
   a.n_tiles = fs.n_tiles;
   a.udf = (float*)udf; a.feat = (float*)feat; a.grad = (float*)grad;
   a.spill = fs.spill;
-  cudaError_t err = set_smem_attributes();
-  if (err != cudaSuccess) return (int)err;
   sweep_kernel<false><<<fs.grid, FT, SWEEP_SMEM, st>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1637,22 +2641,31 @@ int fd_forward(const void* x, const void* w, const void* b, int n_layers, const 
 // K2. Cotangents ubar [rows,1], fbar [rows,d_out-1], gbar [rows,3];
 // outputs x̄ [rows,3], W̄ and b̄ packed like w and b.
 int fd_backward(const void* x, const void* w, const void* b, int n_layers, const void* dims,
-                int pe_w, int multires, float scale, int head, int d_out, int rows, int tier,
+                int pe_w, int multires, float scale, int head, int d_out, int rows, int route,
                 const void* ubar, const void* fbar, const void* gbar, void* xbar, void* wbar,
                 void* bbar, void* scratch, int splits, void* stream) {
   Net net;
   if (rows % BM || splits < 1 || !make_net(n_layers, (const int*)dims, pe_w, &net))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (tier == TIER_HIGHEST || tier == TIER_HIGH) {
+  if (route == ROUTE_GEMM || route == ROUTE_GEMM3) {
     backward_f32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale, head,
                  d_out, rows, (const float*)ubar, (const float*)fbar, (const float*)gbar,
                  (float*)xbar, (float*)wbar, (float*)bbar, (float*)scratch, splits,
-                 tier == TIER_HIGH, st);
+                 route == ROUTE_GEMM3, st);
     return (int)cudaGetLastError();
   }
-  if (tier != TIER_DEFAULT) return cudaErrorInvalidValue;
-  if (!sweep_takes(net, multires, rows) || d_out > net.l[net.n - 1].np) return cudaErrorInvalidValue;
+  if (route != ROUTE_SWEEP && route != ROUTE_TF32X3) return cudaErrorInvalidValue;
+  if (!sweep_takes(net, multires, rows, route == ROUTE_SWEEP ? 128 : 64) ||
+      d_out > net.l[net.n - 1].np || d_out <= WIDTH)
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem_attributes();
+  if (err != cudaSuccess) return (int)err;
+  if (route == ROUTE_TF32X3)
+    return backward_x32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale,
+                        head, d_out, rows, (const float*)ubar, (const float*)fbar,
+                        (const float*)gbar, (float*)xbar, (float*)wbar, (float*)bbar,
+                        (uint8_t*)scratch, splits, st);
   FastScratch fs;
   carve_fast(net, rows, true, splits, (uint8_t*)scratch, &fs);
   pack_weights(net, (const float*)w, fs.w16, st);
@@ -1664,8 +2677,6 @@ int fd_backward(const void* x, const void* w, const void* b, int n_layers, const
   a.ubar = (const float*)ubar; a.fbar = (const float*)fbar; a.gbar = (const float*)gbar;
   a.xbar = (float*)xbar; a.bpart = fs.bpart;
   a.xbuf = fs.xbuf; a.gbuf = fs.gbuf; a.spill = fs.spill;
-  cudaError_t err = set_smem_attributes();
-  if (err != cudaSuccess) return (int)err;
   sweep_kernel<true><<<fs.grid, FT, SWEEP_SMEM, st>>>(a);
 
   WgradArgs g = {};

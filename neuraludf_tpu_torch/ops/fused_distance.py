@@ -22,7 +22,12 @@ CUDA tensor launches the kernels or raises.
 
 Tiers (``cfg.fused_precision``), with the JAX package's ``_DOTS``:
 
-* "highest": f32 operands on the CUDA cores; nothing is kept in bf16.
+* "highest": every product at f32 accuracy; nothing is kept in bf16. Two
+  routes, chosen by the net's shape before the launch (``highest_route``):
+  on the nets the "default" sweeps take, "tf32x3", the sweeps' design on
+  the tensor cores with each operand split into tf32 hi = rna(v) and lo =
+  rna(v - hi) and three passes lo hi + hi lo + hi hi (``tf32x3_mm`` is its
+  plain version); on any other net, "gemm", f32 GEMMs on the CUDA cores.
 * "high": bf16x3, as the TPU kernel's ``_dot3`` runs on the MXU. Every pass
   rounds both operands to bf16 and accumulates in f32. A product of an
   activation or a tangent t with W splits both: (t_hi W_hi + t_hi W_lo) +
@@ -39,9 +44,11 @@ Tiers (``cfg.fused_precision``), with the JAX package's ``_DOTS``:
   sigma) t_a.
 
 The explicit version rounds its operands and those values in the same
-places, so it stays the kernels' arithmetic step by step. The "default"
-and "high" kernels take the widths the "default" sweeps were written for
-(``default_tier_takes``); another net raises there and runs at "highest".
+places, so it stays the kernels' arithmetic step by step; given "tf32x3"
+for the tier, it runs the 3xTF32 route's products (the tests use that; no
+caller on the main path does). The "default" and "high" kernels take the
+widths the "default" sweeps were written for (``default_tier_takes``);
+another net raises there and runs at "highest".
 """
 
 from __future__ import annotations
@@ -61,14 +68,19 @@ from ..nets.mlp import softplus100, weight
 from . import build
 
 TILE = 64  # the kernels' column tile; every padded width is a multiple
-ROW_TILE = {"highest": 64, "high": 64, "default": 128}  # rows are padded to the tier's row tile
-# split-K partial sums of the weight cotangent ("default": 20 output tiles x 13
-# splits are two waves of blocks on 132 SMs)
-W_SPLITS = {"highest": 64, "high": 64, "default": 13}
-SWEEP_WIDTH = 256  # hidden width of the "default" kernels' sweeps
+# how a call runs (the kernels' ROUTE_* constants): the bf16 sweeps
+# ("default"), the bf16x3 GEMMs ("high"), the 3xTF32 sweeps and the f32
+# CUDA-core GEMMs ("highest")
+ROUTE_CODE = {"gemm": 0, "sweep": 1, "gemm3": 2, "tf32x3": 3}
+ROUTES = tuple(ROUTE_CODE)
+ROW_TILE = {"gemm": 64, "gemm3": 64, "sweep": 128, "tf32x3": 64}  # rows are padded to the route's tile
+# split-K partial sums of the weight cotangent ("sweep": 20 output tiles x
+# 13 splits are two waves of blocks on 132 SMs; "tf32x3": 38 tiles x 24,
+# 6.9 waves, so that the last wave is nearly full)
+W_SPLITS = {"gemm": 64, "gemm3": 64, "sweep": 13, "tf32x3": 24}
+SWEEP_WIDTH = 256  # hidden width of the sweeps
 HEADS = {"abs": 0, "square": 1, "sdf": 2}
 TIERS = ("default", "high", "highest")
-TIER_CODE = {"highest": 0, "default": 1, "high": 2}  # the kernels' TIER_* constants
 
 
 def _round_up(v: int, m: int) -> int:
@@ -199,6 +211,27 @@ def default_tier_takes(lay: Layout) -> bool:
             and lay.np_[-1] == SWEEP_WIDTH + TILE)
 
 
+def highest_route(lay: Layout) -> str:
+    """The route of tier "highest" for this net: the 3xTF32 sweeps where
+    the "default" sweeps take its widths, else the f32 CUDA-core GEMMs."""
+    return "tf32x3" if default_tier_takes(lay) else "gemm"
+
+
+def route_for(lay: Layout, tier: str) -> str:
+    """The route a call at ``tier`` takes on this net; raises where the
+    tier's kernels do not take it."""
+    if tier == "highest":
+        return highest_route(lay)
+    if tier not in TIERS:
+        raise ValueError(f"tier {tier!r}")
+    if not default_tier_takes(lay):
+        raise ValueError(
+            f"the '{tier}' kernels take a {TILE}-wide embedding, {SWEEP_WIDTH}-wide hidden "
+            f"layers and a head of {SWEEP_WIDTH + 1} to {SWEEP_WIDTH + TILE} outputs; use "
+            f"fused_precision='highest' for {lay}")
+    return "sweep" if tier == "default" else "gemm3"
+
+
 def _row_map(lay: Layout, l: int):
     """(true row slices, padded row starts) of layer l's weight."""
     if l == 0:
@@ -262,8 +295,35 @@ def _stored(t: torch.Tensor, tier: str) -> torch.Tensor:
     return _bf16(t) if tier == "default" else t
 
 
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to tf32 (10 fraction bits) to nearest, ties away from zero,
+    as ``cvt.rna.tf32.f32``: on the bits, add half of the 13 dropped bits to
+    the magnitude and clear them (a carry moves the exponent, subnormals
+    round the same way). NaN stays NaN."""
+    bits = t.contiguous().view(torch.int32)
+    out = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(t), t, out)
+
+
+def split_tf32(t: torch.Tensor):
+    """(hi, lo) of the 3xTF32 route: hi = rna(t), lo = rna(t - hi)."""
+    hi = tf32(t)
+    return hi, tf32(t - hi)
+
+
+def tf32x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the "tf32x3" kernels run it: both operands split, three
+    passes with f32 sums, the small terms first (lo hi + hi lo + hi hi); lo
+    lo is dropped."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
     # one pass: the kernels' bf16 operands ("default"), f32 accumulation
+    if tier == "tf32x3":
+        return tf32x3_mm(a, b)
     return _stored(a, tier) @ _stored(b, tier)
 
 
@@ -429,7 +489,7 @@ def library() -> ctypes.CDLL:
     """csrc/fused_distance.cu, built at first use, with its argument types."""
     lib = build.load("fused_distance")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fd_scratch_bytes.argtypes = [I, P, I, I, I, I, I, I]
+    lib.fd_scratch_bytes.argtypes = [I, P, I, I, I, I, I, I, I]
     lib.fd_scratch_bytes.restype = ctypes.c_size_t
     lib.fd_forward.argtypes = [P, P, P, I, P, I, I, F, I, I, I, I, P, P, P, P, P]
     lib.fd_forward.restype = I
@@ -454,41 +514,49 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
-class _Kernel:
-    """A kernel's launcher with its launch count (one per launch)."""
+class RouteCount:
+    """The launches of one route of a kernel."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
 
+
+class _Kernel:
+    """A kernel's launcher with its launch count (one per launch) and one
+    count per route (``routes``)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.routes = {r: RouteCount(f"{name}/{r}") for r in ROUTES}
+
     def _common(self, x, wflat, bflat, lay: Layout, tier: str):
         if x.device.type != "cuda":
             raise ValueError(f"{self.name} launches on CUDA tensors only, got {x.device}")
-        if tier not in TIERS:
-            raise ValueError(f"tier {tier!r}")
+        route = route_for(lay, tier)
         if x.dim() != 2 or x.shape[1] != 3:
             raise ValueError(f"x: expected [N, 3], got {tuple(x.shape)}")
         _check(x, "x", x.shape, x.device)
         _check(wflat, "wflat", (lay.w_offsets()[-1],), x.device)
         _check(bflat, "bflat", (lay.b_offsets()[-1],), x.device)
-        if tier in ("default", "high") and not default_tier_takes(lay):
-            raise ValueError(
-                f"{self.name}: the '{tier}' kernels take a {TILE}-wide embedding, "
-                f"{SWEEP_WIDTH}-wide hidden layers and a head of {SWEEP_WIDTH + 1} to "
-                f"{SWEEP_WIDTH + TILE} outputs; use fused_precision='highest' for {lay}")
         dims = (ctypes.c_int * (4 * lay.n_layers))(*lay.dims())
-        rows = _round_up(x.shape[0], ROW_TILE[tier])
-        return dims, rows
+        rows = _round_up(x.shape[0], ROW_TILE[route])
+        return dims, rows, route
 
-    def _scratch(self, lay: Layout, dims, rows: int, tier: str, backward: bool, dev):
+    def _scratch(self, lay: Layout, dims, rows: int, route: str, backward: bool, dev):
         """The call's scratch buffer; call with dev current (the size
         depends on the card's SM count)."""
         n = library().fd_scratch_bytes(lay.n_layers, ctypes.addressof(dims), lay.pe_w,
-                                       lay.multires, rows, int(backward), W_SPLITS[tier],
-                                       TIER_CODE[tier])
+                                       lay.multires, rows, int(backward), W_SPLITS[route],
+                                       lay.d_out, ROUTE_CODE[route])
         if n == 0:
-            raise ValueError(f"{self.name}: layout rejected by the kernel: {lay}")
+            raise ValueError(f"{self.name}: layout rejected by the kernel's {route} route: {lay}")
         return torch.empty(n, dtype=torch.uint8, device=dev)
+
+    def _count(self, route: str):
+        self.launches += 1
+        self.routes[route].launches += 1
 
     @staticmethod
     def _raise_on(rc: int, name: str):
@@ -498,7 +566,7 @@ class _Kernel:
 
 class _ForwardKernel(_Kernel):
     def __call__(self, x, wflat, bflat, lay: Layout, tier: str):
-        dims, rows = self._common(x, wflat, bflat, lay, tier)
+        dims, rows, route = self._common(x, wflat, bflat, lay, tier)
         lib = library()
         n, dev = x.shape[0], x.device
         xp = _pad_rows(x, rows)
@@ -506,22 +574,22 @@ class _ForwardKernel(_Kernel):
         feat = torch.empty((rows, lay.d_out - 1), dtype=torch.float32, device=dev)
         grad = torch.empty((rows, 3), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
-            scratch = self._scratch(lay, dims, rows, tier, False, dev)
+            scratch = self._scratch(lay, dims, rows, route, False, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.fd_forward(
                 xp.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), lay.n_layers,
                 ctypes.addressof(dims), lay.pe_w, lay.multires, lay.scale, HEADS[lay.head],
-                lay.d_out, rows, TIER_CODE[tier], udf.data_ptr(), feat.data_ptr(),
+                lay.d_out, rows, ROUTE_CODE[route], udf.data_ptr(), feat.data_ptr(),
                 grad.data_ptr(), scratch.data_ptr(), stream,
             )
-            self.launches += 1
+            self._count(route)
         self._raise_on(rc, self.name)
         return udf[:n], feat[:n], grad[:n]
 
 
 class _BackwardKernel(_Kernel):
     def __call__(self, x, wflat, bflat, lay: Layout, tier: str, ubar, fbar, gbar):
-        dims, rows = self._common(x, wflat, bflat, lay, tier)
+        dims, rows, route = self._common(x, wflat, bflat, lay, tier)
         lib = library()
         n, dev = x.shape[0], x.device
         for t, name, w in ((ubar, "ubar", 1), (fbar, "fbar", lay.d_out - 1), (gbar, "gbar", 3)):
@@ -531,16 +599,16 @@ class _BackwardKernel(_Kernel):
         wbar = torch.empty_like(wflat)
         bbar = torch.empty_like(bflat)
         with torch.cuda.device(dev):
-            scratch = self._scratch(lay, dims, rows, tier, True, dev)
+            scratch = self._scratch(lay, dims, rows, route, True, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.fd_backward(
                 xp.data_ptr(), wflat.data_ptr(), bflat.data_ptr(), lay.n_layers,
                 ctypes.addressof(dims), lay.pe_w, lay.multires, lay.scale, HEADS[lay.head],
-                lay.d_out, rows, TIER_CODE[tier], up.data_ptr(), fp.data_ptr(),
+                lay.d_out, rows, ROUTE_CODE[route], up.data_ptr(), fp.data_ptr(),
                 gp.data_ptr(), xbar.data_ptr(), wbar.data_ptr(), bbar.data_ptr(),
-                scratch.data_ptr(), W_SPLITS[tier], stream,
+                scratch.data_ptr(), W_SPLITS[route], stream,
             )
-            self.launches += 1
+            self._count(route)
         self._raise_on(rc, self.name)
         return xbar[:n], wbar, bbar
 

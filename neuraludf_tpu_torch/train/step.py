@@ -248,10 +248,11 @@ def draw_noise(cfg: Config, scene, generator: torch.Generator,
 
 def launch_counters() -> tuple:
     """The kernel entry points whose ``launches`` count the kernels a step
-    launches (K1, K2, K3)."""
+    launches (K1, K2, K3), and the counts of K1's and K2's routes."""
     from ..ops import fused_distance, strip_sample
 
-    return fused_distance.fused_forward, fused_distance.fused_backward, strip_sample.strip_sample
+    k1, k2 = fused_distance.fused_forward, fused_distance.fused_backward
+    return (k1, k2, strip_sample.strip_sample, *k1.routes.values(), *k2.routes.values())
 
 
 N_WARMUP = 2  # eager units of a window's bodies before their capture

@@ -270,7 +270,8 @@ def test_layout_padding_round_trip(case):
     lay = fd.layout_for(tc)
     assert lay.pe_w == 64 and all(v % fd.TILE == 0 for v in lay.kp + lay.np_)
     assert lay.np_[-1] == head_np and fd.default_tier_takes(lay) == takes
-    assert fd.ROW_TILE == {"highest": 64, "high": 64, "default": 128}  # rows are padded per tier
+    # rows are padded per route: the bf16 sweeps take 128-row tiles, the others 64
+    assert fd.ROW_TILE == {"gemm": 64, "gemm3": 64, "sweep": 128, "tf32x3": 64}
     if case == "small":
         assert lay.n_true == (40, 13, 40, 40, 33)
         assert lay.skip == (False, False, True, False, False)
@@ -312,3 +313,98 @@ def test_switches_and_wrapper_contract():
             fd.fused_forward(torch.zeros(5, 3), wflat, bflat, lay, tier)
     assert fd.fused_forward.launches == before
     assert not fd.default_tier_takes(lay)  # 40-wide: only tier "highest" runs it on the card
+
+
+def test_tf32_rounding_on_hand_picked_values():
+    """``tf32`` rounds as ``cvt.rna.tf32.f32``: to 10 fraction bits, to
+    nearest, ties away from zero; exact tf32 values, zeros, infinities and
+    NaN pass unchanged; subnormals round on the same bits; a value that
+    rounds past the largest float becomes infinite. ``split_tf32`` gives hi
+    and lo with the 13 low bits clear and hi + lo within 2^-22 of t."""
+    u = 2.0 ** -10  # the tf32 ulp of [1, 2)
+    tiny = 2.0 ** -149  # the smallest f32 subnormal
+    cases = [
+        (1.0, 1.0), (1.0 + u / 2, 1.0 + u), (-(1.0 + u / 2), -(1.0 + u)),  # ties away from zero
+        (1.0 + 3 * u / 2, 1.0 + 2 * u), (1.0 + u / 2 - 2.0 ** -23, 1.0),  # tie up; just below a tie
+        (1.0 + u / 2 + 2.0 ** -23, 1.0 + u), (3.0 + 2 * u, 3.0 + 2 * u), (1.5, 1.5),  # exact
+        (2.0 ** -126, 2.0 ** -126), (-0.0, -0.0), (0.0, 0.0),
+        (5000 * tiny, 8192 * tiny), (4095 * tiny, 0.0), (4096 * tiny, 8192 * tiny),  # subnormals
+        (12288 * tiny, 16384 * tiny), (-4096 * tiny, -8192 * tiny),
+        (float("inf"), float("inf")), (-float("inf"), -float("inf")),
+        (float(np.finfo(np.float32).max), float("inf")),
+    ]
+    t = torch.tensor([c[0] for c in cases], dtype=torch.float32)
+    want = torch.tensor([c[1] for c in cases], dtype=torch.float32)
+    got = fd.tf32(t)
+    assert torch.equal(got, want), [(a, b, c) for a, b, c in zip(t.tolist(), got.tolist(), want.tolist())
+                                    if b != c]
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert torch.isnan(fd.tf32(torch.tensor([float("nan")]))).all()
+    v = torch.tensor(np.random.RandomState(0).randn(10000).astype(np.float32))
+    hi, lo = fd.split_tf32(v)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert float(((hi + lo - v).abs() / v.abs()).max()) <= 2.0 ** -22
+    assert float(((hi - v).abs() / v.abs()).max()) <= 2.0 ** -11
+
+
+# The "tf32x3" route against f32, relative to each output's largest entry:
+# the tolerance chip_smoke.py holds the kernels to at tier "highest".
+TOL_TF32X3 = 1e-4
+
+
+@pytest.mark.parametrize("head", ["abs", "square"])
+def test_tf32x3_products_match_f32_and_jax_highest_at_main_width(head):
+    """The explicit sweeps with the 3xTF32 route's products (``tf32x3_mm``:
+    hi and lo as the kernels round them, three passes) at the main-path
+    width (8x256, the skip at 4, the 257-wide head, 4,096 points seeded with
+    numpy) against the f32 explicit version and against the JAX package's
+    "highest" path (``_value_feat_grad`` with ``_DOTS["highest"]`` under
+    ``jax.vjp``): udf, feature, gradient, x̄, W̄ and b̄ within TOL_TF32X3 of
+    each output's largest entry. Measured on the CPU: at most 2.3e-6
+    against the f32 explicit version and 2.1e-6 against JAX, where the f32
+    explicit version itself is 2.0e-6 from JAX: the split keeps f32's
+    accuracy (a single tf32 pass is ~1e-3 away)."""
+    jc = jconfig.UDFNetworkConfig(udf_type=head)
+    tc = tconfig.UDFNetworkConfig(udf_type=head)
+    n = 4096
+    rng = np.random.RandomState(5)
+    p = jf.init_distance_field(jax.random.PRNGKey(5), jc)
+    p = jax.tree_util.tree_map(lambda a: a + 0.01 * rng.randn(*a.shape).astype(np.float32), p)
+    x = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    cot = (rng.randn(n, 1).astype(np.float32), rng.randn(n, jc.d_out - 1).astype(np.float32),
+           rng.randn(n, 3).astype(np.float32))
+    ws, bs = jfd.effective_weights(p, jc)
+    f = lambda xx, ws_, bs_: jfd._value_feat_grad(xx, ws_, bs_, jc, jfd._DOTS["highest"])
+    out, vjp = jax.vjp(f, jnp.asarray(x), ws, bs)
+    xbar, wsbar, bsbar = vjp(tuple(jnp.asarray(c) for c in cot))
+    flat = lambda ts: np.concatenate([np.asarray(t).reshape(-1) for t in ts])
+    ref_jax = [np.asarray(o) for o in out] + [np.asarray(xbar), flat(wsbar), flat(bsbar)]
+    got = {}
+    for tier in ("tf32x3", "highest"):
+        o, xb, wsb, bsb = explicit_at(tc, ws, bs, x, cot, tier)
+        got[tier] = o + [xb, flat(t.numpy() for t in wsb), flat(t.numpy() for t in bsb)]
+    names = ("udf", "feat", "grad", "xbar", "wbar", "bbar")
+    for ref_name, ref in (("f32 explicit", got["highest"]), ("JAX highest", ref_jax)):
+        for name, a, b in zip(names, got["tf32x3"], ref):
+            assert_rel(a, b, TOL_TF32X3, f"tf32x3 vs {ref_name}: {name}")
+    # the split is what runs: the products are not the f32 ones
+    assert not np.array_equal(got["tf32x3"][3], got["highest"][3])
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_highest_route_over_layout_cases(case):
+    """Tier "highest" takes the 3xTF32 sweeps exactly where the "default"
+    sweeps take the net, else the f32 CUDA-core GEMMs; "default" and "high"
+    keep their routes and refuse the other nets before any launch."""
+    kw, _, _, takes = LAYOUT_CASES[case]
+    lay = fd.layout_for(tconfig.UDFNetworkConfig(**kw))
+    assert fd.highest_route(lay) == ("tf32x3" if takes else "gemm")
+    assert fd.route_for(lay, "highest") == fd.highest_route(lay)
+    for tier, route in (("default", "sweep"), ("high", "gemm3")):
+        if takes:
+            assert fd.route_for(lay, tier) == route
+        else:
+            with pytest.raises(ValueError):
+                fd.route_for(lay, tier)
+    assert set(fd.ROW_TILE) == set(fd.ROUTES) == set(fd.W_SPLITS)
