@@ -14,9 +14,10 @@
 // column: 1.15e11 flop) and 5.901 MFLOP in K2 (six passes less three
 // head-width products: 3.44e11 flop), while their inputs and outputs are
 // ~65 MB: far above the H100's ~295 flop/byte ridge, so the tensor-core
-// rate (bf16 at tier "default", three tf32 passes at "highest") or, on the
-// nets the sweeps refuse, the CUDA cores' f32 rate is the limit: 0.116 /
-// 0.348 ms in bf16, 0.696 / 2.087 ms in 3xTF32, 1.714 / 5.141 ms in f32
+// rate (bf16 at tier "default", two or three bf16 passes a product at
+// "high", three tf32 passes at "highest") or, on the nets the sweeps refuse,
+// the CUDA cores' f32 rate is the limit: 0.116 / 0.348 ms in bf16, 0.294 /
+// 0.813 ms in bf16x3, 0.696 / 2.087 ms in 3xTF32, 1.714 / 5.141 ms in f32
 // (NVIDIA H100 80GB HBM3, 700 W, published peaks).
 //
 // What the design of tier "default" does about it (sweep_kernel,
@@ -111,19 +112,42 @@
 // On any other net: ROUTE_GEMM, every product as one tiled f32 GEMM on the
 // CUDA cores (gemm_kernel, 64x64 tiles) with the same fused epilogues,
 // through a scratch buffer in device memory.
-// Tier "high" (bf16x3, the TPU kernel's _dot3) takes the same route with
-// gemm3_kernel: the same 64x64 tiles, each operand split on its way into
-// shared memory into bf16 hi = bf16(v) and lo = bf16(v - hi), and the
-// passes run as mma.sync m16n8k16 (bf16 x bf16 -> f32) into two
-// accumulators, hi x hi and the lo terms. Which operands are split is what
-// JAX's differentiation of _dot3 makes of each product: an activation or a
-// tangent times W splits both (three passes); a cotangent times W^T keeps
-// the cotangent in bf16 and splits W (two passes, P + bf16((S + P) - P));
-// the weight cotangent splits [in; t_in] and keeps [abar; gamma] in bf16
-// (two passes, H + bf16((L + H) - H) after the split-K sum, reduce3_kernel).
-// Everything between the products stays f32, as in the TPU kernel. What
-// bounds it is the same as "default"'s, at 2 to 3 passes a product; this
-// first version does not pipeline its loads and does not reach that bound.
+// Tier "high" (bf16x3, the TPU kernel's _dot3) takes the nets the sweeps
+// take, on ROUTE_BF16X3 (pack32_kernel<true>, sweep32_kernel<BF16X3>,
+// wgrad_kernel, reduce3_kernel): the skeleton of ROUTE_TF32X3 with bf16
+// pieces.
+//   * Which operands are split is what JAX's differentiation of _dot3 makes
+//     of each product. An activation or a tangent times W: alpha v (JAX
+//     scales the skip concat before its _dot3) is split in registers into
+//     hi = bf16(v) and lo = bf16(v - hi), W into hi and lo slices by the
+//     pack kernel; three passes, lo hi + hi lo + hi hi, into one
+//     accumulator. A cotangent g times W^T: g is rounded to bf16 (the cast's
+//     transpose), two passes P = bf16(g) W_hi^T and S = bf16(g) W_lo^T into
+//     two accumulators, and the epilogue forms alpha (P + bf16((S + P) -
+//     P)); K1's head back-product (gamma = c e0) is that formula on one
+//     column, no GEMM. Everything between the products stays f32: the
+//     activations in shared memory, sigma(100 a) and q in the spill.
+//   * bf16 wgmma takes k16 a step, 32 bytes, as tf32 takes k8: a ring slice
+//     is a k16 step of the weights, [rows x (16 hi | 16 lo)] bf16 in 64
+//     bytes a row, the tf32 slices' geometry. A chunk is four k16 steps, the
+//     ring runs four slices ahead, and the sums are not flushed: at this
+//     tier the bf16 cotangents' own error (8e-4 to 2e-3) dwarfs the
+//     truncating accumulation's (2.4e-5 RMS at most against the explicit
+//     version on a net of one hidden layer, chip_smoke.check_high_rounding).
+//   * K2's weight cotangent: the sweep's epilogues write split(alpha [in;
+//     t_in]) as bf16 hi and lo panels and bf16([abar; gamma]) as one,
+//     [64 x 64] in the 128-byte swizzle, from their registers (1.5 GB a call
+//     at 58,368 points, 1.5x "default"'s); wgrad_kernel multiplies them as
+//     for "default", its second warpgroup on the lo panel of the first's
+//     columns: H and L partials over 24 split-K slices, combined in a fixed
+//     order by reduce3_kernel into H + bf16((L + H) - H): bit-reproducible.
+//   What bounds it: three bf16 passes of the forward products and two of
+//   the reverse and weight ones at 989 TFLOP/s, 0.294 ms for K1 and 0.813
+//   ms for K2 at 58,368 points. Where it waits: the passes are a third of
+//   K1's time and a fifteenth of K2's sweep; each chunk waits for its
+//   passes, and the barriers, the weight loads from L2, the epilogues and
+//   the f32 spill run between the chunks; K2's sweep also stores its 1.5
+//   GB of panels from the epilogues (PERF.md §6).
 //
 // Math (y = s x, e = PE(y), c = phi'(raw)/s):
 //   K1 forward: a_l = alpha_l in_l W_l + b_l, h_{l+1} = softplus100(a_l);
@@ -152,12 +176,9 @@
 enum { EPI_STORE = 0, EPI_FWD = 1, EPI_BWD_T = 2, EPI_BWD_P = 3 };
 enum { HEAD_ABS = 0, HEAD_SQUARE = 1, HEAD_SDF = 2 };
 // how a call runs: the f32 CUDA-core GEMMs (tier "highest" on the nets the
-// sweeps refuse), the bf16 sweeps ("default"), the bf16x3 GEMMs ("high"),
+// sweeps refuse), the bf16 sweeps ("default"), the bf16x3 sweeps ("high"),
 // the 3xTF32 sweeps ("highest" on the sweeps' nets)
-enum { ROUTE_GEMM = 0, ROUTE_SWEEP = 1, ROUTE_GEMM3 = 2, ROUTE_TF32X3 = 3 };
-// tier "high" products: activation x W (both split), cotangent x W^T (W
-// split), [in; t_in]^T x [abar; gamma] (the left side split)
-enum { P3_FWD = 0, P3_REV = 1, P3_WGRAD = 2 };
+enum { ROUTE_GEMM = 0, ROUTE_SWEEP = 1, ROUTE_BF16X3 = 2, ROUTE_TF32X3 = 3 };
 
 // ---------------------------------------------------------------------------
 // tier "highest": f32 GEMMs on the CUDA cores
@@ -191,9 +212,6 @@ struct GemmArgs {
   float alpha;
   long c_split;    // STORE: offset of one split's partial
   Epi epi;
-  int mode3;       // tier "high": P3_FWD, P3_REV or P3_WGRAD
-  float a_scale;   // tier "high": A is scaled by it before the split
-  long lo_off;     // tier "high", P3_WGRAD: offset of the lo partials
 };
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
@@ -415,122 +433,6 @@ __global__ void reduce_kernel(const float* part, int splits, long count, float* 
   out[i] = s;
 }
 
-// ---------------------------------------------------------------------------
-// tier "high": bf16x3 on the tensor cores (mma.sync)
-// ---------------------------------------------------------------------------
-
-#define SK 40  // row stride (bf16) of an operand tile: 32 + 8 spreads the fragment loads over all banks
-
-__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16(v)); }
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a b, a [16 x 16] row-major and b [16 x 8] column-major fragments
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// C = A @ B over [k_begin, k_end) of this blockIdx.z in bf16x3 passes, then
-// the epilogue: P3_FWD alpha (hh + lo terms); P3_REV alpha (hh + bf16((hl +
-// hh) - hh)); P3_WGRAD stores the hh and lh partials (lo_off apart) for
-// reduce3_kernel. Shapes as gemm_kernel's. Eight warps, each a 16 x 32
-// piece of the 64 x 64 tile: four m16n8 accumulators a pass class.
-__global__ void __launch_bounds__(NT) gemm3_kernel(GemmArgs g) {
-  __shared__ __align__(16) uint8_t smem[2 * BM * (BN + 1) * 4];  // operand tiles, then C
-  __nv_bfloat16* Ah = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][SK], k contiguous
-  __nv_bfloat16* Al = Ah + BM * SK;
-  __nv_bfloat16* Bh = Al + BM * SK;  // [BN][SK]: B transposed, k contiguous
-  __nv_bfloat16* Bl = Bh + BN * SK;
-  const bool a_lo = g.mode3 != P3_REV, b_lo = g.mode3 != P3_WGRAD;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * g.k_chunk;
-  const int ke = min(g.K, kb + g.k_chunk);
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32, gid = lane >> 2, tig = lane & 3;
-  const bool a_kfast = g.sak == 1, b_nfast = g.sbn == 1;
-  float acc0[4][4], acc1[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc0[j][i] = acc1[j][i] = 0.f;
-
-  for (int k0 = kb; k0 < ke; k0 += BK) {
-    for (int i = t; i < BM * BK; i += NT) {
-      const int mm = a_kfast ? i / BK : i % BM, kk = a_kfast ? i % BK : i / BM;
-      const float v = g.a_scale * g.A[(long)(m0 + mm) * g.sam + (long)(k0 + kk) * g.sak];
-      const __nv_bfloat16 h = __float2bfloat16(v);
-      Ah[mm * SK + kk] = h;
-      if (a_lo) Al[mm * SK + kk] = __float2bfloat16(v - __bfloat162float(h));
-    }
-    for (int i = t; i < BK * BN; i += NT) {
-      const int kk = b_nfast ? i / BN : i % BK, nn = b_nfast ? i % BN : i / BK;
-      const float v = g.B[(long)(k0 + kk) * g.sbk + (long)(n0 + nn) * g.sbn];
-      const __nv_bfloat16 h = __float2bfloat16(v);
-      Bh[nn * SK + kk] = h;
-      if (b_lo) Bl[nn * SK + kk] = __float2bfloat16(v - __bfloat162float(h));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      const int ao = (wm + gid) * SK + ks + 2 * tig;
-      const uint32_t ah[4] = {ld32(Ah + ao), ld32(Ah + ao + 8 * SK), ld32(Ah + ao + 8),
-                              ld32(Ah + ao + 8 * SK + 8)};
-      uint32_t al[4] = {0u, 0u, 0u, 0u};
-      if (a_lo) {
-        al[0] = ld32(Al + ao); al[1] = ld32(Al + ao + 8 * SK);
-        al[2] = ld32(Al + ao + 8); al[3] = ld32(Al + ao + 8 * SK + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int bo = (wn + 8 * j + gid) * SK + ks + 2 * tig;
-        const uint32_t bh0 = ld32(Bh + bo), bh1 = ld32(Bh + bo + 8);
-        mma_bf16(acc0[j], ah, bh0, bh1);
-        if (b_lo) mma_bf16(acc1[j], ah, ld32(Bl + bo), ld32(Bl + bo + 8));
-        if (a_lo) mma_bf16(acc1[j], al, bh0, bh1);
-      }
-    }
-    __syncthreads();
-  }
-
-  float (*C0)[BN + 1] = reinterpret_cast<float (*)[BN + 1]>(smem);
-  float (*C1)[BN + 1] = C0 + BM;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = wm + gid + (i >> 1) * 8, c = wn + 8 * j + 2 * tig + (i & 1);
-      C0[r][c] = acc0[j][i];
-      C1[r][c] = acc1[j][i];
-    }
-  __syncthreads();
-
-  Epi e = g.epi;
-  if (g.mode3 == P3_WGRAD) {
-    float* c = e.c + (long)blockIdx.z * g.c_split;
-    for (int i = t; i < BM * BN; i += NT) {
-      const int r = i / BN, cc = i % BN;
-      const long o = (long)(m0 + r) * e.ldc + n0 + cc;
-      c[o] = C0[r][cc];
-      c[g.lo_off + o] = C1[r][cc];
-    }
-    return;
-  }
-  for (int i = t; i < BM * BN; i += NT) {
-    const int r = i / BN, cc = i % BN;
-    const float h = C0[r][cc], l = C1[r][cc];
-    // the reverse product is JAX's transpose of _dot3: the W_lo part's sum
-    // passes the bf16 cast of hi + lo - hi
-    const float v = g.mode3 == P3_FWD ? h + l : h + bf16r((l + h) - h);
-    epilogue(e, m0 + r, n0 + cc, g.alpha * v);
-  }
-}
-
 // out[i] = H + bf16((L + H) - H), H and L the sums over z (in z order) of
 // the hh and lh partials: the weight cotangent through _dot3's cast of W.
 __global__ void reduce3_kernel(const float* part, long lo_off, int splits, long count,
@@ -542,7 +444,7 @@ __global__ void reduce3_kernel(const float* part, long lo_off, int splits, long 
     h += part[(long)z * count + i];
     l += part[lo_off + (long)z * count + i];
   }
-  out[i] = h + bf16r((l + h) - h);
+  out[i] = h + __bfloat162float(__float2bfloat16((l + h) - h));
 }
 
 // ---------------------------------------------------------------------------
@@ -594,7 +496,7 @@ struct SweepArgs {
 };
 
 struct WItem {  // one output tile of the grouped weight-cotangent GEMM
-  int xs0, xs1;  // X panel slots of the two warpgroups (xs1 < 0: none)
+  int xs0, xs1;  // X panel slots of the two warpgroups (xs1 < 0: none; bf16x3: hi, lo)
   int gs0, n;    // first G panel slot, tile width (256 or 64)
   int w_off, np, m0, n0;
   float alpha;
@@ -605,6 +507,7 @@ struct WgradArgs {
   float* part;
   long w_total;
   int nx_slots, ng_slots, n_tiles;
+  long lo_off;  // B3: the lo partials, lo_off floats after the hi ones
   WItem item[MAX_ITEMS];
 };
 
@@ -1138,15 +1041,19 @@ __global__ void __launch_bounds__(FT, 1) sweep_kernel(const __grid_constant__ Sw
 
 // One [128 x n] tile of W̄_l = alpha [in; t_in]^T [abar; gamma] over the row
 // tiles of split blockIdx.y, from the operand panels the sweep wrote; both
-// operands MN-major. Partial sums go to part[blockIdx.y].
+// operands MN-major. Partial sums go to part[blockIdx.y]. B3 (route bf16x3,
+// 64-row panels): a [64 x n] tile, the hh partial from warpgroup 0 and the
+// lh one from warpgroup 1, which multiplies the lo panel of the same columns.
+template <bool B3>
 __global__ void __launch_bounds__(FT, 1) wgrad_kernel(const __grid_constant__ WgradArgs P) {
+  constexpr int UNITS = B3 ? 1 : 2;  // 64-row halves of a panel
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x, lane = tid & 31, wq = (tid >> 5) & 3, g = tid >> 7;
   const WItem I = P.item[blockIdx.x];
   const int t0 = (int)((long)P.n_tiles * blockIdx.y / gridDim.y);
   const int t1 = (int)((long)P.n_tiles * (blockIdx.y + 1) / gridDim.y);
-  const int n_steps = (t1 - t0) * 2;  // 64 rows of the tiles a step
+  const int n_steps = (t1 - t0) * UNITS;  // 64 rows of the tiles a step
   const int nm = I.xs1 >= 0 ? 2 : 1, n_pan = I.n / 64;
   const bool active = g < nm;
 
@@ -1156,15 +1063,16 @@ __global__ void __launch_bounds__(FT, 1) wgrad_kernel(const __grid_constant__ Wg
 
   auto load_step = [&](int step) {
     if (step < n_steps) {
-      const size_t tile = t0 + (step >> 1);
-      const uint32_t half = (step & 1) * (PANEL / 2);
+      const size_t tile = t0 + step / UNITS;
+      const uint32_t half = (step % UNITS) * (PANEL / 2);
+      const size_t pb = (size_t)UNITS * (PANEL / 2);  // bytes of a panel
       const uint32_t base = sbase + (step % N_STAGES) * WG_STAGE;
       for (int c = tid; c < (nm + n_pan) * 512; c += FT) {
         const int pn = c >> 9;
         const uint32_t o = (c & 511) * 16;
         const uint8_t* src =
-            pn < nm ? P.xbuf + (tile * P.nx_slots + (pn ? I.xs1 : I.xs0)) * PANEL + half + o
-                    : P.gbuf + (tile * P.ng_slots + I.gs0 + (pn - nm)) * PANEL + half + o;
+            pn < nm ? P.xbuf + (tile * P.nx_slots + (pn ? I.xs1 : I.xs0)) * pb + half + o
+                    : P.gbuf + (tile * P.ng_slots + I.gs0 + (pn - nm)) * pb + half + o;
         cp_async16(base + (pn < nm ? pn : 2 + pn - nm) * (PANEL / 2) + o, src);
       }
     }
@@ -1195,8 +1103,9 @@ __global__ void __launch_bounds__(FT, 1) wgrad_kernel(const __grid_constant__ Wg
   acc_fence<128>(acc);
   cp_async_wait<0>();
   if (!active) return;
-  float* out = P.part + (size_t)blockIdx.y * P.w_total + I.w_off +
-               (size_t)(I.m0 + g * 64 + wq * 16 + (lane >> 2)) * I.np + I.n0 + 2 * (lane & 3);
+  float* out = P.part + (B3 ? g * P.lo_off : 0) + (size_t)blockIdx.y * P.w_total + I.w_off +
+               (size_t)(I.m0 + (B3 ? 0 : g * 64) + wq * 16 + (lane >> 2)) * I.np + I.n0 +
+               2 * (lane & 3);
 #pragma unroll
   for (int i4 = 0; i4 < 32; ++i4) {
     if (i4 * 8 < I.n) {
@@ -1209,15 +1118,15 @@ __global__ void __launch_bounds__(FT, 1) wgrad_kernel(const __grid_constant__ Wg
 }
 
 // ---------------------------------------------------------------------------
-// tier "highest" on the sweeps' nets: 3xTF32 wgmma sweeps, f32 activations
+// tiers "highest" and "high" on the sweeps' nets: 3xTF32 and bf16x3 wgmma
+// sweeps, f32 activations
 // ---------------------------------------------------------------------------
 
 #define XPANEL 8192       // [64 x 32] f32 activation panel: 128-byte rows, 16-byte chunks XOR row % 8
 #define X_PANELS 10       // eight h panels (columns 0..255), two e panels (columns 256..319)
-#define XSLICE 16384      // ring stage: a k8 weight slice of up to 256 rows, [hi 8 | lo 8] f32 a row
+#define XSLICE 16384      // ring stage: a k-step of up to 256 weight rows, [hi | lo] in 64 bytes a row
 #define X_STAGES 8
-#define X_CHUNK_STEPS 2   // k8 steps of a sweep product between two f32 flushes
-#define X_LEAD 6          // slices in flight ahead of the chunk being consumed (X_LEAD + X_CHUNK_STEPS <= X_STAGES)
+#define XB_PANEL 8192     // bf16x3: a [64 x 64] bf16 operand panel of the weight cotangent
 #define X_MAX_SEGS 64
 #define X_CHUNK 4096      // wgrad32: 32 rows of a panel
 #define XW_B 16384        // wgrad32: one [128 x 32] operand half (hi or lo), K-major, 128-byte swizzle
@@ -1227,11 +1136,21 @@ __global__ void __launch_bounds__(FT, 1) wgrad_kernel(const __grid_constant__ Wg
   (512 + X_STAGES * XSLICE + X_PANELS * XPANEL + 4 * 128 + 4 * 4 * WIDTH)
 #define WGRAD32_SMEM (1024 + 4 * XW_B + XW_STAGES * XW_STAGE)
 
-struct XSeg {  // consecutive k8 slices of one product's weights in the packed buffer
-  uint32_t off;   // float offset of the first slice; a slice is rows x 16 floats
+// What the two split-operand routes' sweeps take a step of a product: KS
+// columns of the activations against one ring slice (32 bytes of K: a tf32
+// k8 or a bf16 k16 wgmma); CH steps a chunk, whose passes one wgmma group
+// runs; LEAD slices in flight ahead of the chunk (LEAD + CH <= X_STAGES).
+// tf32x3 adds each chunk's passes to the product in f32 (the tensor cores'
+// sums truncate); bf16x3 accumulates the whole product in the tensor cores.
+template <int MODE> struct XTier;
+template <> struct XTier<ROUTE_TF32X3> { static constexpr int KS = 8, CH = 2, LEAD = 6; };
+template <> struct XTier<ROUTE_BF16X3> { static constexpr int KS = 16, CH = 4, LEAD = 4; };
+
+struct XSeg {  // consecutive k-step slices of one product's weights in the packed buffer
+  uint32_t off;   // float offset of the first slice; a slice is rows x 16 floats (64 bytes)
   uint16_t rows;  // N of the product (256 or 64)
-  uint8_t steps;  // k8 slices
-  uint8_t acol8;  // first column of the A operand in the activation panels, over 8
+  uint8_t steps;  // slices
+  uint8_t acol;   // first column of the A operand in the activation panels, over KS
 };
 
 struct PSeg {  // how pack32_kernel fills one XSeg
@@ -1245,13 +1164,13 @@ struct Pack32Args {
 
 struct Sweep32Args {
   const float *x, *b, *w;  // w: the f32 weights (K1 reads the head's first column)
-  const float* wpk;        // tf32 hi and lo slices of every product, in the order of s
+  const float* wpk;        // tf32 or bf16 hi and lo slices of every product, in the order of s
   int n_layers, multires, head, d_out, n_tiles, n_segs, nx_slots, ng_slots, b_total;
   float scale;
   float *udf, *feat, *grad;
   const float *ubar, *fbar, *gbar;
   float *xbar, *bpart;
-  uint8_t *xbuf, *gbuf;
+  uint8_t *xbuf, *gbuf;  // K2: operand panels of the weight cotangent
   float4* spill;  // per block: sigma (and q) of every hidden layer, f32
   FLayer l[F_MAX_LAYERS];
   XSeg s[X_MAX_SEGS];
@@ -1369,6 +1288,49 @@ __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t
   else wgmma_tf32_n32(d, a, db, scale_d);
 }
 
+// d (+)= a b, wgmma m64nNk16 bf16 x bf16 -> f32 (scale_d 0: d = a b). A from
+// registers, four a thread, two bf16 each: rows lane / 4 and lane / 4 + 8 of
+// the warp's 16, columns 2 (lane % 4) + {0, 1} and 8 more; B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_bf16_n32(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  if constexpr (N == 128) wgmma_bf16_n128(d, a, db, scale_d);
+  else wgmma_bf16_n32(d, a, db, scale_d);
+}
+
 // byte offset of f32 element (row, col) in the activation panels
 __device__ __forceinline__ uint32_t xoff(int row, int col) {
   return (col >> 5) * XPANEL + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
@@ -1386,29 +1348,39 @@ __device__ __forceinline__ void xput2(uint8_t* act, int row, int col, float a, f
   *reinterpret_cast<float2*>(act + xoff(row, col)) = make_float2(a, b);
 }
 
-// W and W^T slices of every product, split into tf32 hi and lo, in the
-// order the sweep consumes them: item i is (slice j, row r, k); the slice's
-// row r holds [hi(B[k0 + k, r]) k < 8 | lo(...)], B = W (trans) or W^T.
+// W and W^T slices of every product, split into hi and lo (tf32, or bf16
+// with BF16), in the order the sweep consumes them: item i is (slice j, row
+// r, k); the slice's row r holds [hi(B[k0 + k, r]) k < KS | lo(...)], B = W
+// (trans) or W^T, 64 bytes either way.
+template <bool BF16>
 __global__ void pack32_kernel(const float* w, float* out, const __grid_constant__ Pack32Args P) {
+  constexpr int KS = BF16 ? 16 : 8;
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   long base = 0;
   int s = 0;
   for (; s < P.n; ++s) {
-    const long cnt = (long)P.s[s].steps * P.s[s].rows * 8;
+    const long cnt = (long)P.s[s].steps * P.s[s].rows * KS;
     if (i < base + cnt) break;
     base += cnt;
   }
   if (s == P.n) return;
   const PSeg q = P.s[s];
-  const long e = i - base, jr = e >> 3;
-  const int k = (int)(e & 7), r = (int)(jr % q.rows), j = (int)(jr / q.rows);
-  const int kk = q.kbase + 8 * j + k, nn = q.n0 + r;
+  const long e = i - base, jr = e / KS;
+  const int k = (int)(e % KS), r = (int)(jr % q.rows), j = (int)(jr / q.rows);
+  const int kk = q.kbase + KS * j + k, nn = q.n0 + r;
   const float v = q.trans ? w[q.src + (long)nn * q.ld + kk] : w[q.src + (long)kk * q.ld + nn];
-  uint32_t hi, lo;
-  split_tf32(v, hi, lo);
-  float* o = out + q.dst + (jr << 4) + k;
-  o[0] = __uint_as_float(hi);
-  o[8] = __uint_as_float(lo);
+  if constexpr (BF16) {
+    __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out + q.dst) + jr * 32 + k;
+    const __nv_bfloat16 hi = __float2bfloat16(v);
+    o[0] = hi;
+    o[16] = __float2bfloat16(v - __bfloat162float(hi));
+  } else {
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    float* o = out + q.dst + (jr << 4) + k;
+    o[0] = __uint_as_float(hi);
+    o[8] = __uint_as_float(lo);
+  }
 }
 
 struct XCursor {  // the next slice to load, and the slices loaded so far
@@ -1443,88 +1415,174 @@ __device__ __forceinline__ void x_afrag(const uint8_t* act, int wrow, int col, i
   split_tf32(xget(act, r + 8, c + 4), ah[3], al[3]);
 }
 
-// slices it .. it + c - 1 are in: X_LEAD + it groups are committed, X_LEAD - c may pend
-__device__ __forceinline__ void x_wait_slices(int c) {
-  static_assert(X_CHUNK_STEPS <= 4 && X_LEAD + X_CHUNK_STEPS <= X_STAGES, "ring");
-  if (c >= 4) cp_async_wait<(X_LEAD < 4 ? 0 : X_LEAD - 4)>();
-  else if (c == 3) cp_async_wait<(X_LEAD < 3 ? 0 : X_LEAD - 3)>();
-  else if (c == 2) cp_async_wait<X_LEAD - 2>();
-  else cp_async_wait<X_LEAD - 1>();
+// this warp's [16 x 16] piece of the activation panels at column col as
+// bf16: with SPLIT, alpha v into hi = bf16(alpha v) and lo = bf16(alpha v -
+// hi); else hi = bf16(v) alone (a cotangent)
+template <bool SPLIT>
+__device__ __forceinline__ void b3_afrag(const uint8_t* act, int wrow, int col, int lane,
+                                         float alpha, uint32_t* ah, uint32_t* al) {
+  const int r = wrow + (lane >> 2), c = col + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 v = *reinterpret_cast<const float2*>(act + xoff(r + 8 * (i & 1), c + 8 * (i >> 1)));
+    if (SPLIT) {
+      v.x *= alpha;
+      v.y *= alpha;
+    }
+    ah[i] = pack2(v.x, v.y);
+    if (SPLIT) {
+      const float2 h = unpack2(ah[i]);
+      al[i] = pack2(v.x - h.x, v.y - h.y);
+    }
+  }
 }
 
-// acc += one chunk of a sweep product: c <= X_CHUNK_STEPS k8 steps at
-// columns col[0..c) of the activation panels, against the ring's next c
-// slices. The chunk's passes go to a fresh accumulator tmp, the small terms
-// first (a_lo B_hi, a_hi B_lo of every step, then a_hi B_hi), and tmp is
-// added to acc in f32: the tensor cores' accumulation truncates, so each
-// chunk's sum rounds only at its own magnitude, acc rounds to nearest.
-// This warpgroup's N columns are rows g N .. g N + N - 1 of the slices.
-template <int N>
-__device__ __forceinline__ void x_chunk(float* acc, float* tmp, const uint8_t* act, int wrow,
-                                        const int* col, int c, bool last, uint32_t ring,
-                                        const Sweep32Args& P, XCursor& pc, uint32_t& it, int g,
-                                        int tid) {
-  x_wait_slices(c);
+// slices it .. it + c - 1 are in: LEAD + it groups are committed, LEAD - c may pend
+template <int LEAD>
+__device__ __forceinline__ void x_wait_slices(int c) {
+  if (c >= 4) cp_async_wait<(LEAD < 4 ? 0 : LEAD - 4)>();
+  else if (c == 3) cp_async_wait<(LEAD < 3 ? 0 : LEAD - 3)>();
+  else if (c == 2) cp_async_wait<LEAD - 2>();
+  else cp_async_wait<LEAD - 1>();
+}
+
+// One chunk of a sweep product: c <= CH steps at columns col[0..c) of the
+// activation panels, against the ring's next c slices; this warpgroup's N
+// columns are rows g N .. g N + N - 1 of the slices.
+// tf32x3: the chunk's passes go to a fresh accumulator acc2, the small
+// terms first (a_lo B_hi, a_hi B_lo of every step, then a_hi B_hi), and
+// acc2 is added to acc in f32: the tensor cores' accumulation truncates, so
+// each chunk's sum rounds only at its own magnitude, acc rounds to nearest.
+// bf16x3, a forward product (REV false): alpha A split, the same three
+// passes into acc. bf16x3, a reverse product: bf16(A) B_hi into acc (P),
+// bf16(A) B_lo into acc2 (S), kept apart for the epilogue.
+template <int MODE, int N, bool REV>
+__device__ __forceinline__ void x_chunk(float* acc, float* acc2, const uint8_t* act, int wrow,
+                                        const int* col, int c, bool last, float alpha,
+                                        uint32_t ring, const Sweep32Args& P, XCursor& pc,
+                                        uint32_t& it, int g, int tid) {
+  using T = XTier<MODE>;
+  static_assert(T::CH <= 4 && T::LEAD + T::CH <= X_STAGES, "ring");
+  constexpr bool TF32 = MODE == ROUTE_TF32X3;
+  x_wait_slices<T::LEAD>(c);
   fence_async();
   if (last) bulk_reads_done(tid);  // the epilogue may write the panels a dump reads
   __syncthreads();
-  // slices it + X_LEAD.. go to the stages of slices it + X_LEAD - X_STAGES..,
+  // slices it + LEAD.. go to the stages of slices it + LEAD - X_STAGES..,
   // which the previous chunk read and waited for
   for (int q = 0; q < c; ++q) x_load_next(P, pc, ring, tid);
-  uint32_t ah[X_CHUNK_STEPS][4], al[X_CHUNK_STEPS][4];
-  uint32_t sb[X_CHUNK_STEPS];
+  uint32_t ah[T::CH][4], al[T::CH][4];
+  uint32_t sb[T::CH];
 #pragma unroll
-  for (int q = 0; q < X_CHUNK_STEPS; ++q) {
-    if (q < c) x_afrag(act, wrow, col[q], tid & 31, ah[q], al[q]);
+  for (int q = 0; q < T::CH; ++q) {
+    if (q < c) {
+      if constexpr (TF32) x_afrag(act, wrow, col[q], tid & 31, ah[q], al[q]);
+      else b3_afrag<!REV>(act, wrow, col[q], tid & 31, alpha, ah[q], al[q]);
+    }
     sb[q] = ring + ((it + q) % X_STAGES) * XSLICE + g * N * 64;
   }
   wgmma_fence();
+  if constexpr (TF32) {
 #pragma unroll
-  for (int q = 0; q < X_CHUNK_STEPS; ++q) {
-    if (q < c) {
-      wgmma_tf32<N>(tmp, al[q], make_desc64(sb[q]), q != 0);
-      wgmma_tf32<N>(tmp, ah[q], make_desc64(sb[q] + 32), 1);
+    for (int q = 0; q < T::CH; ++q) {
+      if (q < c) {
+        wgmma_tf32<N>(acc2, al[q], make_desc64(sb[q]), q != 0);
+        wgmma_tf32<N>(acc2, ah[q], make_desc64(sb[q] + 32), 1);
+      }
     }
-  }
 #pragma unroll
-  for (int q = 0; q < X_CHUNK_STEPS; ++q)
-    if (q < c) wgmma_tf32<N>(tmp, ah[q], make_desc64(sb[q]), 1);
+    for (int q = 0; q < T::CH; ++q)
+      if (q < c) wgmma_tf32<N>(acc2, ah[q], make_desc64(sb[q]), 1);
+  } else if constexpr (REV) {
+#pragma unroll
+    for (int q = 0; q < T::CH; ++q) {
+      if (q < c) {
+        wgmma_bf16<N>(acc, ah[q], make_desc64(sb[q]), 1);
+        wgmma_bf16<N>(acc2, ah[q], make_desc64(sb[q] + 32), 1);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < T::CH; ++q) {
+      if (q < c) {
+        wgmma_bf16<N>(acc, al[q], make_desc64(sb[q]), 1);
+        wgmma_bf16<N>(acc, ah[q], make_desc64(sb[q] + 32), 1);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < T::CH; ++q)
+      if (q < c) wgmma_bf16<N>(acc, ah[q], make_desc64(sb[q]), 1);
+  }
   wgmma_commit();
   wgmma_wait<0>();
-  acc_fence<N / 2>(tmp);
+  acc_fence<N / 2>(acc);
+  acc_fence<N / 2>(acc2);
 #pragma unroll
-  for (int q = 0; q < X_CHUNK_STEPS; ++q) {
+  for (int q = 0; q < T::CH; ++q) {
     reg_fence4(ah[q]);
-    reg_fence4(al[q]);
+    if constexpr (TF32 || !REV) reg_fence4(al[q]);
   }
+  if constexpr (TF32) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] += tmp[i];
+    for (int i = 0; i < N / 2; ++i) acc[i] += acc2[i];
+  }
   it += c;
 }
 
 // acc[64 x N] = the activation panels' 64 rows times this warpgroup's N
 // columns of the weights of the next nseg (1 or 2) segments, one product
-// over their k8 slices, in chunks of X_CHUNK_STEPS.
-template <int N>
-__device__ __forceinline__ void x_gemm(float* acc, const uint8_t* act, int wrow, int& cs, int nseg,
-                                       uint32_t ring, const Sweep32Args& P, XCursor& pc,
-                                       uint32_t& it, int g, int tid) {
-  float tmp[N / 2];
+// over their slices, in chunks of CH steps (bf16x3, REV: P in acc, S in
+// acc2). alpha scales A before bf16x3's split (a forward product).
+template <int MODE, int N, bool REV>
+__device__ __forceinline__ void x_gemm(float* acc, float* acc2, const uint8_t* act, int wrow,
+                                       int& cs, int nseg, float alpha, uint32_t ring,
+                                       const Sweep32Args& P, XCursor& pc, uint32_t& it, int g,
+                                       int tid) {
+  using T = XTier<MODE>;
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) {
+    acc[i] = 0.f;
+    if (MODE == ROUTE_BF16X3 && REV) acc2[i] = 0.f;
+  }
   const XSeg sa = P.s[cs], sb = nseg > 1 ? P.s[cs + 1] : sa;
   const int na = sa.steps, total = na + (nseg > 1 ? sb.steps : 0);
-  for (int j = 0; j < total; j += X_CHUNK_STEPS) {
-    const int c = total - j < X_CHUNK_STEPS ? total - j : X_CHUNK_STEPS;
-    int col[X_CHUNK_STEPS];
+  for (int j = 0; j < total; j += T::CH) {
+    const int c = total - j < T::CH ? total - j : T::CH;
+    int col[T::CH];
 #pragma unroll
-    for (int q = 0; q < X_CHUNK_STEPS; ++q) {
+    for (int q = 0; q < T::CH; ++q) {
       const int k = j + q;
-      col[q] = k < na ? 8 * (sa.acol8 + k) : 8 * (sb.acol8 + k - na);
+      col[q] = k < na ? T::KS * (sa.acol + k) : T::KS * (sb.acol + k - na);
     }
-    x_chunk<N>(acc, tmp, act, wrow, col, c, j + c == total, ring, P, pc, it, g, tid);
+    x_chunk<MODE, N, REV>(acc, acc2, act, wrow, col, c, j + c == total, alpha, ring, P, pc, it, g,
+                          tid);
   }
   cs += nseg;
+}
+
+// the output of a reverse product: alpha P (tf32x3), or alpha (P + bf16((S +
+// P) - P)) (bf16x3, JAX's transpose of _dot3: the W_lo part's sum passes the
+// bf16 cast of hi + lo - hi)
+template <int MODE>
+__device__ __forceinline__ float rev_out(float alpha, float p, float s) {
+  if constexpr (MODE == ROUTE_BF16X3) return alpha * (p + bf16_round((s + p) - p));
+  return alpha * p;
+}
+
+// bf16x3, K2: the bf16 pair v at (row, col), (row, col + 1) of a [64 x 64]
+// operand panel (128-byte rows, the 128-byte swizzle)
+__device__ __forceinline__ void xb_put2(uint8_t* panel, int row, int col, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(panel + swz(row, col)) = v;
+}
+
+// bf16x3, K2: alpha (v0, v1) split into an X panel (hi) and the next one (lo)
+__device__ __forceinline__ void xb_split2(uint8_t* hi, int row, int col, float alpha, float v0,
+                                          float v1) {
+  const float a0 = alpha * v0, a1 = alpha * v1;
+  const uint32_t h = pack2(a0, a1);
+  const float2 hf = unpack2(h);
+  xb_put2(hi, row, col, h);
+  xb_put2(hi + XB_PANEL, row, col, pack2(a0 - hf.x, a1 - hf.y));
 }
 
 __device__ __forceinline__ void x_dump(uint32_t src, int panels, uint8_t* dst, int tid) {
@@ -1539,9 +1597,11 @@ __device__ __forceinline__ void x_dump(uint32_t src, int panels, uint8_t* dst, i
 // K1 (BWD = false): a tile is 64 points. K2 (BWD = true): a tile is 32
 // points, primal and tangent rows interleaved by eights, as sweep_kernel's.
 // Both warpgroups read the tile's 64 rows; warpgroup g owns columns
-// 128 g.. of the 256-wide products and 32 g.. of the 64-wide ones.
-template <bool BWD>
+// 128 g.. of the 256-wide products and 32 g.. of the 64-wide ones. MODE is
+// the route: ROUTE_TF32X3 (tier "highest") or ROUTE_BF16X3 (tier "high").
+template <bool BWD, int MODE>
 __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ Sweep32Args P) {
+  constexpr bool B3 = MODE == ROUTE_BF16X3;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = smem_u32(smem_raw);
   const uint32_t ring = (raw_addr + 511u) & ~511u;
@@ -1560,29 +1620,34 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
   const float scale = P.scale;
   const int pts = BWD ? 32 : 64;
   float* bpart = BWD ? P.bpart + (long)blockIdx.x * P.b_total : nullptr;
+  // bf16x3 applies alpha to the forward products' A before the split
+  auto out_alpha = [](float alpha) { return B3 ? 1.f : alpha; };
 
   if (BWD)
     for (int i = tid; i < P.b_total; i += FT) bpart[i] = 0.f;
   __syncthreads();
 
-  float acc[64], eacc[16];
+  float acc[64], acc2[64], eacc[16];
   uint32_t it = 0;
   XCursor pc = {0, 0, 0u};
-  for (int q = 0; q < X_LEAD; ++q) x_load_next(P, pc, ring, tid);
+  for (int q = 0; q < XTier<MODE>::LEAD; ++q) x_load_next(P, pc, ring, tid);
 
   for (int tile = blockIdx.x; tile < P.n_tiles; tile += gridDim.x) {
     const long p0 = (long)tile * pts;
     int cs = 0;  // the next segment of the products
+    // bf16x3, K2: this tile's operand panels of the weight cotangent
+    uint8_t* xb = BWD && B3 ? P.xbuf + (size_t)tile * P.nx_slots * XB_PANEL : nullptr;
+    uint8_t* gb = BWD && B3 ? P.gbuf + (size_t)tile * P.ng_slots * XB_PANEL : nullptr;
 
     // the embedding (and its tangent) into the e panels, columns 256..319
     for (int item = tid; item < pts * (mr + 1); item += FT) {
       const int pl = item / (mr + 1), k = item % (mr + 1);
       const int row = BWD ? ((pl >> 3) * 16 + (pl & 7)) : pl;
-      float y[3], gb[3];
+      float y[3], gb3[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         y[i] = scale * P.x[(p0 + pl) * 3 + i];
-        gb[i] = BWD ? P.gbar[(p0 + pl) * 3 + i] : 0.f;
+        gb3[i] = BWD ? P.gbar[(p0 + pl) * 3 + i] : 0.f;
       }
       if (k < mr) {
         const float f = (float)(1 << k);
@@ -1593,15 +1658,15 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
           xput(act, row, WIDTH + 3 + 6 * k + i, sn);
           xput(act, row, WIDTH + 6 + 6 * k + i, cs_);
           if (BWD) {
-            xput(act, row + 8, WIDTH + 3 + 6 * k + i, scale * f * cs_ * gb[i]);
-            xput(act, row + 8, WIDTH + 6 + 6 * k + i, -scale * f * sn * gb[i]);
+            xput(act, row + 8, WIDTH + 3 + 6 * k + i, scale * f * cs_ * gb3[i]);
+            xput(act, row + 8, WIDTH + 6 + 6 * k + i, -scale * f * sn * gb3[i]);
           }
         }
       } else {
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
           xput(act, row, WIDTH + i, y[i]);
-          if (BWD) xput(act, row + 8, WIDTH + i, scale * gb[i]);
+          if (BWD) xput(act, row + 8, WIDTH + i, scale * gb3[i]);
         }
         for (int c = 3 + 6 * mr; c < PE_W; ++c) {
           xput(act, row, WIDTH + c, 0.f);
@@ -1611,15 +1676,32 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
     }
     fence_async();
     __syncthreads();
-    if (BWD) x_dump(act_s + 8 * XPANEL, 2, P.xbuf + ((size_t)tile * P.nx_slots) * XPANEL, tid);
+    if (BWD && !B3) x_dump(act_s + 8 * XPANEL, 2, P.xbuf + ((size_t)tile * P.nx_slots) * XPANEL, tid);
+    if (BWD && B3) {
+      // split(alpha [e; t_e]) for layer 0 and every skip layer, each its own alpha
+      for (int l = 0; l < L; ++l) {
+        if (l > 0 && !P.l[l].skip) continue;
+        uint8_t* hi = xb + (size_t)(P.l[l].xslot + (l > 0 ? 2 * WIDTH / 64 : 0)) * XB_PANEL;
+        for (int c = tid; c < 64 * 8; c += FT) {
+          const int row = c >> 3, ch = c & 7;
+          const float4 u = *reinterpret_cast<const float4*>(act + xoff(row, WIDTH + 8 * ch));
+          const float4 v = *reinterpret_cast<const float4*>(act + xoff(row, WIDTH + 8 * ch + 4));
+          const float e[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 8; j += 2) xb_split2(hi, row, 8 * ch + j, P.l[l].alpha, e[j], e[j + 1]);
+        }
+      }
+    }
 
     // forward sweep over the hidden layers
     for (int l = 0; l < L - 1; ++l) {
       const FLayer Ly = P.l[l];
-      x_gemm<128>(acc, act, wrow, cs, (l > 0) + (l == 0 || Ly.skip), ring, P, pc, it, g, tid);
+      x_gemm<MODE, 128, false>(acc, acc2, act, wrow, cs, (l > 0) + (l == 0 || Ly.skip), Ly.alpha,
+                               ring, P, pc, it, g, tid);
       __syncthreads();  // the other warpgroup is done reading the panels this layer overwrites
       const float* __restrict__ bias = P.b + Ly.b_off;
-      const float alpha = Ly.alpha;
+      const float alpha = out_alpha(Ly.alpha), an = P.l[l + 1].alpha;
+      uint8_t* xn = B3 && BWD ? xb + (size_t)P.l[l + 1].xslot * XB_PANEL : nullptr;
       float4* sp = P.spill + ((size_t)(blockIdx.x * (L - 1) + l) * 16) * FT + tid;
 #pragma unroll
       for (int i4 = 0; i4 < 16; ++i4) {
@@ -1640,36 +1722,42 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
           xput2(act, r0 + 8, col, s0 * t0, s1 * t1);
           sp[(size_t)i4 * FT] = make_float4(s0, s1, 100.f * s0 * (1.f - s0) * t0,
                                             100.f * s1 * (1.f - s1) * t1);
+          if (B3) {  // layer l + 1's input, split after its alpha
+            uint8_t* hi = xn + (size_t)(2 * (col >> 6)) * XB_PANEL;
+            xb_split2(hi, r0, col & 63, an, h0, h1);
+            xb_split2(hi, r0 + 8, col & 63, an, s0 * t0, s1 * t1);
+          }
         }
       }
       fence_async();
       __syncthreads();
-      if (BWD)
+      if (BWD && !B3)
         x_dump(act_s, 8, P.xbuf + ((size_t)tile * P.nx_slots + P.l[l + 1].xslot) * XPANEL, tid);
     }
 
     // the head
     const FLayer H = P.l[L - 1];
     const float* hbias = P.b + H.b_off;
+    const float ha = out_alpha(H.alpha);
     if (!BWD) {
       // columns 256.. (features only), then columns 0..255
-      x_gemm<32>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+      x_gemm<MODE, 32, false>(acc, acc2, act, wrow, cs, 1, H.alpha, ring, P, pc, it, g, tid);
 #pragma unroll
       for (int i4 = 0; i4 < 4; ++i4) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = WIDTH + ce + i4 * 8 + cq + (j & 1), row = r0 + (j >> 1) * 8;
           if (col < P.d_out)
-            P.feat[(p0 + row) * (P.d_out - 1) + col - 1] = H.alpha * acc[4 * i4 + j] + hbias[col];
+            P.feat[(p0 + row) * (P.d_out - 1) + col - 1] = ha * acc[4 * i4 + j] + hbias[col];
         }
       }
-      x_gemm<128>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+      x_gemm<MODE, 128, false>(acc, acc2, act, wrow, cs, 1, H.alpha, ring, P, pc, it, g, tid);
 #pragma unroll
       for (int i4 = 0; i4 < 16; ++i4) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = cw + i4 * 8 + cq + (j & 1), row = r0 + (j >> 1) * 8;
-          const float v = H.alpha * acc[4 * i4 + j] + hbias[col];
+          const float v = ha * acc[4 * i4 + j] + hbias[col];
           if (col == 0) {
             P.udf[p0 + row] = head_phi(v, P.head) / scale;
             crow[row] = head_dphi(v, P.head) / scale;
@@ -1679,24 +1767,32 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
         }
       }
       __syncthreads();
-      // gamma_{L-2} = sigma_{L-2} (alpha c W_head[:, 0]): the seed c e0 needs no GEMM
+      // gamma_{L-2} = sigma_{L-2} (the seed c e0 times W_head^T): one column,
+      // no GEMM; at bf16x3 rounded as the reverse products round, bf16(c)
+      // against W's hi and lo (each product exact in f32)
       const float* wh = P.w + H.w_off;  // W_head [kp x np]; column 0 is wh[k np]
       const float4* sp = P.spill + ((size_t)(blockIdx.x * (L - 1) + L - 2) * 16) * FT + tid;
-      const float ca = crow[r0], cb = crow[r0 + 8];
+      const float ca = B3 ? bf16_round(crow[r0]) : crow[r0];
+      const float cb = B3 ? bf16_round(crow[r0 + 8]) : crow[r0 + 8];
+      auto back = [&](float c, float w) {
+        if (!B3) return H.alpha * (c * w);
+        const float w_hi = bf16_round(w);
+        return rev_out<MODE>(H.alpha, c * w_hi, c * bf16_round(w - w_hi));
+      };
 #pragma unroll 4
       for (int i4 = 0; i4 < 16; ++i4) {
         const int col = cw + i4 * 8 + cq;
         const float w0 = __ldg(wh + (long)col * H.np), w1 = __ldg(wh + (long)(col + 1) * H.np);
         const float4 s = sp[(size_t)i4 * FT];
-        xput2(act, r0, col, s.x * (H.alpha * (ca * w0)), s.y * (H.alpha * (ca * w1)));
-        xput2(act, r0 + 8, col, s.z * (H.alpha * (cb * w0)), s.w * (H.alpha * (cb * w1)));
+        xput2(act, r0, col, s.x * back(ca, w0), s.y * back(ca, w1));
+        xput2(act, r0 + 8, col, s.z * back(cb, w0), s.w * back(cb, w1));
       }
     } else {
       // only column 0 of the head's forward is read: raw and its tangent
-      x_gemm<32>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+      x_gemm<MODE, 32, false>(acc, acc2, act, wrow, cs, 1, H.alpha, ring, P, pc, it, g, tid);
       if (g == 0 && cq == 0) {
         const int pl = (r0 >> 4) * 8 + (r0 & 7);
-        const float raw = H.alpha * acc[0] + hbias[0], tan0 = H.alpha * acc[2];
+        const float raw = ha * acc[0] + hbias[0], tan0 = ha * acc[2];
         const float cc = head_dphi(raw, P.head) / scale;
         crow[pl] = cc;
         arow[pl] = P.ubar[p0 + pl] * cc + (P.head == HEAD_SQUARE ? 2.f / scale : 0.f) * tan0;
@@ -1718,6 +1814,10 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
         }
         *reinterpret_cast<float4*>(act + xoff(row, ch * 8)) = make_float4(v[0], v[1], v[2], v[3]);
         *reinterpret_cast<float4*>(act + xoff(row, ch * 8 + 4)) = make_float4(v[4], v[5], v[6], v[7]);
+        if (B3)
+          *reinterpret_cast<uint4*>(gb + (size_t)(H.gslot + (ch >> 3)) * XB_PANEL + row * 128 +
+                                    (((ch & 7) ^ (row & 7)) << 4)) =
+              make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7]));
       }
       for (int col = tid; col < H.np; col += FT) {
         float s = 0.f;
@@ -1736,25 +1836,28 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
     for (int i = 0; i < 16; ++i) eacc[i] = 0.f;
     for (int l = BWD ? L - 1 : L - 2; l >= 0; --l) {
       const FLayer Ly = P.l[l];
-      if (BWD)
+      if (BWD && !B3)
         x_dump(act_s, l == L - 1 ? X_PANELS : 8,
                P.gbuf + ((size_t)tile * P.ng_slots + Ly.gslot) * XPANEL, tid);
       if (l == 0 || Ly.skip) {  // the e-part of alpha G W^T: eps (and ebar)
-        x_gemm<32>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+        x_gemm<MODE, 32, true>(acc, acc2, act, wrow, cs, 1, 1.f, ring, P, pc, it, g, tid);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) eacc[i] += Ly.alpha * acc[i];
+        for (int i = 0; i < 16; ++i) eacc[i] += rev_out<MODE>(Ly.alpha, acc[i], acc2[i]);
       }
       if (l == 0) break;
-      x_gemm<128>(acc, act, wrow, cs, 1, ring, P, pc, it, g, tid);
+      x_gemm<MODE, 128, true>(acc, acc2, act, wrow, cs, 1, 1.f, ring, P, pc, it, g, tid);
       __syncthreads();  // the other warpgroup is done reading the panels this layer overwrites
       const float alpha = Ly.alpha;
       const float4* sp = P.spill + ((size_t)(blockIdx.x * (L - 1) + l - 1) * 16) * FT + tid;
+      uint8_t* gn = B3 && BWD ? gb + (size_t)P.l[l - 1].gslot * XB_PANEL : nullptr;
 #pragma unroll
       for (int i4 = 0; i4 < 16; ++i4) {
         const int col = cw + i4 * 8 + cq;
         const float4 s = sp[(size_t)i4 * FT];
-        const float d0 = alpha * acc[4 * i4], d1 = alpha * acc[4 * i4 + 1];
-        const float d2 = alpha * acc[4 * i4 + 2], d3 = alpha * acc[4 * i4 + 3];
+        const float d0 = rev_out<MODE>(alpha, acc[4 * i4], acc2[4 * i4]);
+        const float d1 = rev_out<MODE>(alpha, acc[4 * i4 + 1], acc2[4 * i4 + 1]);
+        const float d2 = rev_out<MODE>(alpha, acc[4 * i4 + 2], acc2[4 * i4 + 2]);
+        const float d3 = rev_out<MODE>(alpha, acc[4 * i4 + 3], acc2[4 * i4 + 3]);
         if (!BWD) {  // s: sigma of rows r0 (x, y) and r0 + 8 (z, w)
           xput2(act, r0, col, s.x * d0, s.y * d1);
           xput2(act, r0 + 8, col, s.z * d2, s.w * d3);
@@ -1762,6 +1865,11 @@ __global__ void __launch_bounds__(FT, 1) sweep32_kernel(const __grid_constant__ 
           float ab0 = s.x * d0 + s.z * d2, ab1 = s.y * d1 + s.w * d3;
           xput2(act, r0, col, ab0, ab1);
           xput2(act, r0 + 8, col, s.x * d2, s.y * d3);
+          if (B3) {  // G_{l-1} in bf16
+            uint8_t* panel = gn + (size_t)(col >> 6) * XB_PANEL;
+            xb_put2(panel, r0, col & 63, pack2(ab0, ab1));
+            xb_put2(panel, r0 + 8, col & 63, pack2(s.x * d2, s.y * d3));
+          }
 #pragma unroll
           for (int m = 4; m < 32; m <<= 1) {
             ab0 += __shfl_xor_sync(0xffffffffu, ab0, m);
@@ -2023,7 +2131,7 @@ bool make_net(int n_layers, const int* dims, int pe_w, Net* net) {
   return true;
 }
 
-// ----- tiers "highest" and "high" -----
+// ----- tier "highest" on any other net (route ROUTE_GEMM) -----
 
 struct Scratch {
   float* in[MAX_LAYERS];
@@ -2031,9 +2139,8 @@ struct Scratch {
   float *g0, *g1, *ebar, *wpart, *bpart;
 };
 
-// rows_total = rows (K1) or 2 rows (K2); returns the float count. Tier
-// "high" keeps two partials (hh and lh) of the weight cotangent a split.
-size_t carve(const Net& net, long rows_total, int splits, bool high, float* base, Scratch* s) {
+// rows_total = rows (K1) or 2 rows (K2); returns the float count.
+size_t carve(const Net& net, long rows_total, int splits, float* base, Scratch* s) {
   size_t off = 0;
   for (int i = 0; i < net.n; ++i) {
     if (s) s->in[i] = base + off;
@@ -2048,28 +2155,14 @@ size_t carve(const Net& net, long rows_total, int splits, bool high, float* base
   if (s) s->ebar = base + off;
   off += rows_total * net.pe_w;
   if (s) s->wpart = base + off;
-  off += (size_t)splits * net.max_kp * net.max_np * (high ? 2 : 1);
+  off += (size_t)splits * net.max_kp * net.max_np;
   if (s) s->bpart = base + off;
   off += (size_t)splits * net.max_np;
   return off;
 }
 
-// Tier "highest": gemm_kernel. Tier "high": gemm3_kernel in mode; alpha
-// then scales A before the split (P3_FWD, P3_WGRAD: JAX divides the skip
-// concat before its _dot3) or the result (P3_REV: after the transpose).
-void gemm(GemmArgs g, int splits, bool high, int mode, cudaStream_t st) {
-  const dim3 grid(g.N / BN, g.M / BM, splits);
-  if (!high) {
-    gemm_kernel<<<grid, NT, 0, st>>>(g);
-    return;
-  }
-  g.mode3 = mode;
-  g.a_scale = 1.f;
-  if (mode != P3_REV) {
-    g.a_scale = g.alpha;
-    g.alpha = 1.f;
-  }
-  gemm3_kernel<<<grid, NT, 0, st>>>(g);
+void gemm(const GemmArgs& g, int splits, cudaStream_t st) {
+  gemm_kernel<<<dim3(g.N / BN, g.M / BM, splits), NT, 0, st>>>(g);
 }
 
 GemmArgs row_gemm(const float* A, long lda, const float* B, long sbk, long sbn, int M, int N,
@@ -2100,7 +2193,7 @@ void embed(const Net& net, const Scratch& s, const float* x, int rows, int multi
 // Forward sweep over the rows [row0, row0 + rows) of every buffer. With
 // tangent, these are the tangent rows and the primal rows start at 0.
 void forward_sweep(const Net& net, const Scratch& s, const float* w, const float* b, int rows,
-                   long row0, bool tangent, bool high, cudaStream_t st) {
+                   long row0, bool tangent, cudaStream_t st) {
   for (int i = 0; i < net.n; ++i) {
     const Layer& L = net.l[i];
     Epi e = {};
@@ -2117,17 +2210,17 @@ void forward_sweep(const Net& net, const Scratch& s, const float* w, const float
       e.lda = L.np;
     }
     gemm(row_gemm(s.in[i] + row0 * L.kp, L.kp, w + L.w_off, L.np, 1, rows, L.np, L.kp, L.alpha, e),
-         1, high, P3_FWD, st);
+         1, st);
   }
 }
 
 void forward_f32(const Net& net, const float* xf, const float* w, const float* b, int multires,
                  float scale, int head, int d_out, int rows, float* udf, float* feat, float* grad,
-                 float* scratch, bool high, cudaStream_t st) {
+                 float* scratch, cudaStream_t st) {
   Scratch s;
-  carve(net, rows, 0, high, scratch, &s);
+  carve(net, rows, 0, scratch, &s);
   embed(net, s, xf, rows, multires, scale, nullptr, 0, st);
-  forward_sweep(net, s, w, b, rows, 0, false, high, st);
+  forward_sweep(net, s, w, b, rows, 0, false, st);
 
   const Layer& last = net.l[net.n - 1];
   float *gc = s.g0, *gn = s.g1;
@@ -2148,8 +2241,7 @@ void forward_f32(const Net& net, const float* xf, const float* w, const float* b
       e.gt = gn;
       e.ldg = L.kh;
     }
-    gemm(row_gemm(gc, L.np, w + L.w_off, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, high, P3_REV,
-         st);
+    gemm(row_gemm(gc, L.np, w + L.w_off, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, st);
     float* tmp = gc; gc = gn; gn = tmp;
   }
   pe_vjp_kernel<<<(rows + 127) / 128, 128, 0, st>>>(xf, rows, multires, scale, s.ebar, nullptr,
@@ -2159,15 +2251,15 @@ void forward_f32(const Net& net, const float* xf, const float* w, const float* b
 void backward_f32(const Net& net, const float* xf, const float* wf, const float* b, int multires,
                   float scale, int head, int d_out, int rows, const float* ubar, const float* fbar,
                   const float* gbar, float* xbar, float* wbar, float* bbar, float* scratch,
-                  int splits, bool high, cudaStream_t st) {
+                  int splits, cudaStream_t st) {
   Scratch s;
   const long R = rows;
   const int pe_w = net.pe_w;
-  carve(net, 2 * R, splits, high, scratch, &s);
+  carve(net, 2 * R, splits, scratch, &s);
 
   embed(net, s, xf, rows, multires, scale, gbar, R, st);
-  forward_sweep(net, s, wf, b, rows, 0, false, high, st);
-  forward_sweep(net, s, wf, b, rows, R, true, high, st);
+  forward_sweep(net, s, wf, b, rows, 0, false, st);
+  forward_sweep(net, s, wf, b, rows, R, true, st);
 
   const Layer& last = net.l[net.n - 1];
   float *gc = s.g0, *gn = s.g1;
@@ -2200,14 +2292,13 @@ void backward_f32(const Net& net, const float* xf, const float* wf, const float*
       e.gt = gn + R * L.kh;
       e.gp = gn;
     }
-    gemm(row_gemm(gc + R * L.np, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, high,
-         P3_REV, st);
+    gemm(row_gemm(gc + R * L.np, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, st);
     // primal rows: abar_{l-1} += sigma(100 a) (abar W^T)|h, ebar
     e.mode = EPI_BWD_P;
     e.ebar = s.ebar;
     e.atan = nullptr;
     e.gt = nullptr;
-    gemm(row_gemm(gc, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, high, P3_REV, st);
+    gemm(row_gemm(gc, L.np, wl, 1, L.np, rows, L.kp, L.np, L.alpha, e), 1, st);
     // W̄ = alpha [in; t_in]^T [abar; gamma], split-K partials then a reduction
     GemmArgs g = {};
     g.A = s.in[i]; g.sam = 1; g.sak = L.kp;
@@ -2218,14 +2309,9 @@ void backward_f32(const Net& net, const float* xf, const float* wf, const float*
     g.epi.mode = EPI_STORE;
     g.epi.c = s.wpart;
     g.epi.ldc = L.np;
-    g.lo_off = (long)splits * net.max_kp * net.max_np;
-    gemm(g, w_splits, high, P3_WGRAD, st);
+    gemm(g, w_splits, st);
     const long wcnt = (long)L.kp * L.np;
-    if (high)
-      reduce3_kernel<<<(wcnt + 255) / 256, 256, 0, st>>>(s.wpart, g.lo_off, w_splits, wcnt,
-                                                          wbar + L.w_off);
-    else
-      reduce_kernel<<<(wcnt + 255) / 256, 256, 0, st>>>(s.wpart, w_splits, wcnt, wbar + L.w_off);
+    reduce_kernel<<<(wcnt + 255) / 256, 256, 0, st>>>(s.wpart, w_splits, wcnt, wbar + L.w_off);
     // b̄ = sum of abar over the primal rows
     colsum_kernel<<<dim3((L.np + 127) / 128, splits), 128, 0, st>>>(gc, rows, L.np, b_chunk,
                                                                    s.bpart);
@@ -2378,7 +2464,7 @@ int fill_items(const Net& net, const SweepArgs& a, WItem* items) {
   return n;
 }
 
-// ----- tier "highest" on the sweeps' nets (route ROUTE_TF32X3) -----
+// ----- tiers "highest" and "high" on the sweeps' nets (routes ROUTE_TF32X3, ROUTE_BF16X3) -----
 
 struct X32Scratch {
   float* wpk;
@@ -2388,14 +2474,17 @@ struct X32Scratch {
   int grid, n_tiles, nx_slots, ng_slots;
 };
 
-// k8 slices of the embedding's columns, 3 + 6 multires of them real
-int x_ne(int multires) { return (3 + 6 * multires + 7) / 8; }
-
-// The products in the order sweep32_kernel<backward> consumes them (forward
-// W^T slices, the head, then the reverse sweep's W slices), and how
-// pack32_kernel fills them. Returns the floats of the packed buffer.
-long fill_sweep32(const Net& net, bool backward, int d_out, int multires, Sweep32Args* a,
-                  Pack32Args* p) {
+// The products in the order sweep32_kernel<backward, mode> consumes them
+// (forward W^T slices, the head, then the reverse sweep's W slices), how
+// pack32_kernel fills them, and each layer's panel slots of the weight
+// cotangent: ROUTE_TF32X3 dumps f32 [64 x 32] panels (the embedding's once,
+// in slots 0 and 1); ROUTE_BF16X3 writes a hi and a lo [64 x 64] bf16 panel
+// of every 64 columns of each layer's input (the embedding's for layer 0 and
+// again, after its alpha, for each skip layer) and one of its cotangent.
+// Returns the floats of the packed buffer; sets *nx, *ng to the slots.
+long fill_sweep32(const Net& net, bool backward, int d_out, int multires, int mode,
+                  Sweep32Args* a, Pack32Args* p, int* nx, int* ng) {
+  const int ks = mode == ROUTE_BF16X3 ? 16 : 8;  // columns a k-step
   int n = 0;
   long dst = 0;
   auto add = [&](const Layer& L, int trans, int kbase, int n0, int rows, int steps, int acol) {
@@ -2403,37 +2492,49 @@ long fill_sweep32(const Net& net, bool backward, int d_out, int multires, Sweep3
     s.off = (uint32_t)dst;
     s.rows = (uint16_t)rows;
     s.steps = (uint8_t)steps;
-    s.acol8 = (uint8_t)(acol / 8);
+    s.acol = (uint8_t)(acol / ks);
     p->s[n] = {(int)L.w_off, L.np, trans, kbase, n0, rows, steps, (int)dst};
     dst += (long)steps * rows * 16;
     ++n;
   };
   a->n_layers = net.n;
   a->b_total = (int)net.b_total;
+  int xs = 0, gs = 0;
   for (int i = 0; i < net.n; ++i) {
     const Layer& L = net.l[i];
     FLayer& F = a->l[i];
     F.np = L.np; F.skip = L.skip; F.alpha = L.alpha;
     F.b_off = (int)L.b_off; F.w_off = (int)L.w_off;
-    F.xslot = i == 0 ? 0 : 2 + 8 * (i - 1);
-    F.gslot = 8 * i;
+    if (mode == ROUTE_BF16X3) {
+      F.xslot = xs;
+      F.gslot = gs;
+      xs += 2 * L.kp / 64;
+      gs += L.np / 64;
+    } else {
+      F.xslot = i == 0 ? 0 : 2 + 8 * (i - 1);
+      F.gslot = 8 * i;
+      xs = 2 + 8 * i;
+      gs = 8 * i + X_PANELS;
+    }
   }
-  const int ne = x_ne(multires);
+  *nx = xs;
+  *ng = gs;
+  const int ne = (3 + 6 * multires + ks - 1) / ks;  // k-steps of the embedding's real columns
   for (int i = 0; i < net.n - 1; ++i) {
     const Layer& L = net.l[i];
-    if (i > 0) add(L, 0, 0, 0, WIDTH, L.kh / 8, 0);
+    if (i > 0) add(L, 0, 0, 0, WIDTH, L.kh / ks, 0);
     if (i == 0 || L.skip) add(L, 0, L.kh, 0, WIDTH, ne, WIDTH);
   }
   const Layer& H = net.l[net.n - 1];
   if (backward) {
-    add(H, 0, 0, 0, 64, H.kp / 8, 0);
+    add(H, 0, 0, 0, 64, H.kp / ks, 0);
   } else {
-    add(H, 0, 0, WIDTH, 64, H.kp / 8, 0);
-    add(H, 0, 0, 0, WIDTH, H.kp / 8, 0);
+    add(H, 0, 0, WIDTH, 64, H.kp / ks, 0);
+    add(H, 0, 0, 0, WIDTH, H.kp / ks, 0);
   }
   for (int i = backward ? net.n - 1 : net.n - 2; i >= 0; --i) {
     const Layer& L = net.l[i];
-    const int kg = i == net.n - 1 ? (d_out + 7) / 8 : L.np / 8;  // G's columns, over 8
+    const int kg = i == net.n - 1 ? (d_out + ks - 1) / ks : L.np / ks;  // G's columns, over ks
     if (i == 0 || L.skip) add(L, 1, 0, L.kh, 64, kg, 0);
     if (i > 0) add(L, 1, 0, 0, WIDTH, kg, 0);
   }
@@ -2444,16 +2545,16 @@ long fill_sweep32(const Net& net, bool backward, int d_out, int multires, Sweep3
 
 // byte count; fills fs when base is given
 size_t carve_x32(const Net& net, int rows, bool backward, int splits, int d_out, int multires,
-                 uint8_t* base, X32Scratch* fs) {
+                 int mode, uint8_t* base, X32Scratch* fs) {
   Sweep32Args a = {};
   Pack32Args p = {};
-  const long packed = fill_sweep32(net, backward, d_out, multires, &a, &p);
   X32Scratch f = {};
+  const long packed =
+      fill_sweep32(net, backward, d_out, multires, mode, &a, &p, &f.nx_slots, &f.ng_slots);
+  const size_t panel = mode == ROUTE_BF16X3 ? XB_PANEL : XPANEL;
   f.n_tiles = rows / (backward ? 32 : 64);
   const int sms = sm_count();
   f.grid = f.n_tiles < sms ? f.n_tiles : sms;
-  f.nx_slots = 2 + 8 * (net.n - 1);
-  f.ng_slots = 8 * (net.n - 1) + X_PANELS;
   size_t off = 0;
   f.wpk = (float*)(base + off);
   off += round256(4 * (size_t)packed);
@@ -2461,11 +2562,11 @@ size_t carve_x32(const Net& net, int rows, bool backward, int splits, int d_out,
   off += (size_t)f.grid * (net.n - 1) * 16 * FT * 16;
   if (backward) {
     f.xbuf = base + off;
-    off += (size_t)f.n_tiles * f.nx_slots * XPANEL;
+    off += (size_t)f.n_tiles * f.nx_slots * panel;
     f.gbuf = base + off;
-    off += (size_t)f.n_tiles * f.ng_slots * XPANEL;
-    f.part = (float*)(base + off);
-    off += round256(4 * (size_t)splits * net.w_total);
+    off += (size_t)f.n_tiles * f.ng_slots * panel;
+    f.part = (float*)(base + off);  // bf16x3: the hh partials, then the lh ones
+    off += round256(4 * (size_t)splits * net.w_total * (mode == ROUTE_BF16X3 ? 2 : 1));
     f.bpart = (float*)(base + off);
     off += round256(4 * (size_t)f.grid * net.b_total);
   }
@@ -2501,49 +2602,93 @@ int fill_items32(const Net& net, const Sweep32Args& a, XItem* items) {
   return n;
 }
 
+// the output tiles of wgrad_kernel on route bf16x3: the 64 X columns of one
+// hi panel (warpgroup 0) and its lo panel (warpgroup 1) by 256 G columns
+// (the head's last 64 apart); alpha is in the panels already
+int fill_items3(const Net& net, const Sweep32Args& a, WItem* items) {
+  int n = 0;
+  for (int i = 0; i < net.n; ++i) {
+    const Layer& L = net.l[i];
+    for (int mp = 0; mp < L.kp / 64; ++mp) {
+      for (int n0 = 0; n0 < L.np; n0 += WIDTH) {
+        if (n >= MAX_ITEMS) return -1;
+        WItem& I = items[n++];
+        I.xs0 = a.l[i].xslot + 2 * mp;
+        I.xs1 = I.xs0 + 1;
+        I.gs0 = a.l[i].gslot + n0 / 64;
+        I.n = L.np - n0 >= WIDTH ? WIDTH : 64;
+        I.w_off = (int)L.w_off;
+        I.np = L.np;
+        I.m0 = 64 * mp;
+        I.n0 = n0;
+        I.alpha = 1.f;
+      }
+    }
+  }
+  return n;
+}
+
+template <int MODE>
 int forward_x32(const Net& net, const float* x, const float* w, const float* b, int multires,
                 float scale, int head, int d_out, int rows, float* udf, float* feat, float* grad,
                 uint8_t* scratch, cudaStream_t st) {
+  constexpr bool B3 = MODE == ROUTE_BF16X3;
   X32Scratch fs;
-  carve_x32(net, rows, false, 0, d_out, multires, scratch, &fs);
+  carve_x32(net, rows, false, 0, d_out, multires, MODE, scratch, &fs);
   Sweep32Args a = {};
   Pack32Args p = {};
-  const long packed = fill_sweep32(net, false, d_out, multires, &a, &p);
-  pack32_kernel<<<(unsigned)((packed / 2 + 255) / 256), 256, 0, st>>>(w, fs.wpk, p);
+  int nx, ng;
+  const long packed = fill_sweep32(net, false, d_out, multires, MODE, &a, &p, &nx, &ng);
+  const long items = B3 ? packed : packed / 2;  // weights packed: 16 or 8 in 16 floats
+  pack32_kernel<B3><<<(unsigned)((items + 255) / 256), 256, 0, st>>>(w, fs.wpk, p);
   a.x = x; a.b = b; a.w = w; a.wpk = fs.wpk;
   a.multires = multires; a.head = head; a.d_out = d_out; a.scale = scale;
   a.n_tiles = fs.n_tiles;
   a.udf = udf; a.feat = feat; a.grad = grad;
   a.spill = fs.spill;
-  sweep32_kernel<false><<<fs.grid, FT, SWEEP32_SMEM, st>>>(a);
+  sweep32_kernel<false, MODE><<<fs.grid, FT, SWEEP32_SMEM, st>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <int MODE>
 int backward_x32(const Net& net, const float* x, const float* w, const float* b, int multires,
                  float scale, int head, int d_out, int rows, const float* ubar, const float* fbar,
                  const float* gbar, float* xbar, float* wbar, float* bbar, uint8_t* scratch,
                  int splits, cudaStream_t st) {
+  constexpr bool B3 = MODE == ROUTE_BF16X3;
   X32Scratch fs;
-  carve_x32(net, rows, true, splits, d_out, multires, scratch, &fs);
+  carve_x32(net, rows, true, splits, d_out, multires, MODE, scratch, &fs);
   Sweep32Args a = {};
   Pack32Args p = {};
-  const long packed = fill_sweep32(net, true, d_out, multires, &a, &p);
-  Wgrad32Args g = {};
-  const int n_items = fill_items32(net, a, g.item);
+  int nx, ng;
+  const long packed = fill_sweep32(net, true, d_out, multires, MODE, &a, &p, &nx, &ng);
+  Wgrad32Args g32 = {};
+  WgradArgs g3 = {};
+  const int n_items = B3 ? fill_items3(net, a, g3.item) : fill_items32(net, a, g32.item);
   if (n_items < 0) return cudaErrorInvalidValue;
-  pack32_kernel<<<(unsigned)((packed / 2 + 255) / 256), 256, 0, st>>>(w, fs.wpk, p);
+  const long items = B3 ? packed : packed / 2;
+  pack32_kernel<B3><<<(unsigned)((items + 255) / 256), 256, 0, st>>>(w, fs.wpk, p);
   a.x = x; a.b = b; a.w = w; a.wpk = fs.wpk;
   a.multires = multires; a.head = head; a.d_out = d_out; a.scale = scale;
   a.n_tiles = fs.n_tiles; a.nx_slots = fs.nx_slots; a.ng_slots = fs.ng_slots;
   a.ubar = ubar; a.fbar = fbar; a.gbar = gbar;
   a.xbar = xbar; a.bpart = fs.bpart;
   a.xbuf = fs.xbuf; a.gbuf = fs.gbuf; a.spill = fs.spill;
-  sweep32_kernel<true><<<fs.grid, FT, SWEEP32_SMEM, st>>>(a);
-  g.xbuf = fs.xbuf; g.gbuf = fs.gbuf; g.part = fs.part; g.w_total = net.w_total;
-  g.nx_slots = fs.nx_slots; g.ng_slots = fs.ng_slots; g.n_tiles = fs.n_tiles;
-  wgrad32_kernel<<<dim3(n_items, splits), FT, WGRAD32_SMEM, st>>>(g);
-  reduce_kernel<<<(unsigned)((net.w_total + 255) / 256), 256, 0, st>>>(fs.part, splits,
-                                                                       net.w_total, wbar);
+  sweep32_kernel<true, MODE><<<fs.grid, FT, SWEEP32_SMEM, st>>>(a);
+  if (B3) {
+    g3.xbuf = fs.xbuf; g3.gbuf = fs.gbuf; g3.part = fs.part; g3.w_total = net.w_total;
+    g3.nx_slots = fs.nx_slots; g3.ng_slots = fs.ng_slots; g3.n_tiles = fs.n_tiles;
+    g3.lo_off = (long)splits * net.w_total;
+    wgrad_kernel<true><<<dim3(n_items, splits), FT, WGRAD_SMEM, st>>>(g3);
+    reduce3_kernel<<<(unsigned)((net.w_total + 255) / 256), 256, 0, st>>>(
+        fs.part, g3.lo_off, splits, net.w_total, wbar);
+  } else {
+    g32.xbuf = fs.xbuf; g32.gbuf = fs.gbuf; g32.part = fs.part; g32.w_total = net.w_total;
+    g32.nx_slots = fs.nx_slots; g32.ng_slots = fs.ng_slots; g32.n_tiles = fs.n_tiles;
+    wgrad32_kernel<<<dim3(n_items, splits), FT, WGRAD32_SMEM, st>>>(g32);
+    reduce_kernel<<<(unsigned)((net.w_total + 255) / 256), 256, 0, st>>>(fs.part, splits,
+                                                                         net.w_total, wbar);
+  }
   reduce_kernel<<<(unsigned)((net.b_total + 255) / 256), 256, 0, st>>>(fs.bpart, fs.grid,
                                                                        net.b_total, bbar);
   return (int)cudaGetLastError();
@@ -2564,15 +2709,17 @@ static cudaError_t set_smem_attributes() {
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(sweep_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)SWEEP_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)WGRAD_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep32_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SWEEP32_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SWEEP32_SMEM);
+  const void* wgrads[] = {(const void*)wgrad_kernel<false>, (const void*)wgrad_kernel<true>};
+  for (const void* k : wgrads)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WGRAD_SMEM);
+  const void* sweeps32[] = {(const void*)sweep32_kernel<false, ROUTE_TF32X3>,
+                            (const void*)sweep32_kernel<true, ROUTE_TF32X3>,
+                            (const void*)sweep32_kernel<false, ROUTE_BF16X3>,
+                            (const void*)sweep32_kernel<true, ROUTE_BF16X3>};
+  for (const void* k : sweeps32)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SWEEP32_SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(wgrad32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)WGRAD32_SMEM);
@@ -2588,16 +2735,16 @@ size_t fd_scratch_bytes(int n_layers, const void* dims, int pe_w, int multires, 
                         int backward, int splits, int d_out, int route) {
   Net net;
   if (!make_net(n_layers, (const int*)dims, pe_w, &net)) return 0;
-  if (route == ROUTE_SWEEP || route == ROUTE_TF32X3) {
+  if (route == ROUTE_SWEEP || route == ROUTE_TF32X3 || route == ROUTE_BF16X3) {
     if (!sweep_takes(net, multires, rows, route == ROUTE_SWEEP ? 128 : 64) || splits < 1 ||
         d_out <= WIDTH)
       return 0;
     if (route == ROUTE_SWEEP) return carve_fast(net, rows, backward != 0, splits, nullptr, nullptr);
-    return carve_x32(net, rows, backward != 0, splits, d_out, multires, nullptr, nullptr);
+    return carve_x32(net, rows, backward != 0, splits, d_out, multires, route, nullptr, nullptr);
   }
-  if (rows % BM || (route != ROUTE_GEMM && route != ROUTE_GEMM3)) return 0;
-  return sizeof(float) * carve(net, backward ? 2L * rows : rows, backward ? splits : 0,
-                               route == ROUTE_GEMM3, nullptr, nullptr);
+  if (rows % BM || route != ROUTE_GEMM) return 0;
+  return sizeof(float) * carve(net, backward ? 2L * rows : rows, backward ? splits : 0, nullptr,
+                               nullptr);
 }
 
 // K1. x [rows,3] (rows a multiple of 64, of 128 on the sweeps); outputs
@@ -2608,22 +2755,26 @@ int fd_forward(const void* x, const void* w, const void* b, int n_layers, const 
   Net net;
   if (rows % BM || !make_net(n_layers, (const int*)dims, pe_w, &net)) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (route == ROUTE_GEMM || route == ROUTE_GEMM3) {
+  if (route == ROUTE_GEMM) {
     forward_f32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale, head,
-                d_out, rows, (float*)udf, (float*)feat, (float*)grad, (float*)scratch,
-                route == ROUTE_GEMM3, st);
+                d_out, rows, (float*)udf, (float*)feat, (float*)grad, (float*)scratch, st);
     return (int)cudaGetLastError();
   }
-  if (route != ROUTE_SWEEP && route != ROUTE_TF32X3) return cudaErrorInvalidValue;
+  if (route != ROUTE_SWEEP && route != ROUTE_TF32X3 && route != ROUTE_BF16X3)
+    return cudaErrorInvalidValue;
   if (!sweep_takes(net, multires, rows, route == ROUTE_SWEEP ? 128 : 64) ||
       d_out > net.l[net.n - 1].np || d_out <= WIDTH)
     return cudaErrorInvalidValue;
   cudaError_t err = set_smem_attributes();
   if (err != cudaSuccess) return (int)err;
   if (route == ROUTE_TF32X3)
-    return forward_x32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale,
-                       head, d_out, rows, (float*)udf, (float*)feat, (float*)grad,
-                       (uint8_t*)scratch, st);
+    return forward_x32<ROUTE_TF32X3>(net, (const float*)x, (const float*)w, (const float*)b,
+                                     multires, scale, head, d_out, rows, (float*)udf,
+                                     (float*)feat, (float*)grad, (uint8_t*)scratch, st);
+  if (route == ROUTE_BF16X3)
+    return forward_x32<ROUTE_BF16X3>(net, (const float*)x, (const float*)w, (const float*)b,
+                                     multires, scale, head, d_out, rows, (float*)udf,
+                                     (float*)feat, (float*)grad, (uint8_t*)scratch, st);
   FastScratch fs;
   carve_fast(net, rows, false, 0, (uint8_t*)scratch, &fs);
   pack_weights(net, (const float*)w, fs.w16, st);
@@ -2648,24 +2799,29 @@ int fd_backward(const void* x, const void* w, const void* b, int n_layers, const
   if (rows % BM || splits < 1 || !make_net(n_layers, (const int*)dims, pe_w, &net))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (route == ROUTE_GEMM || route == ROUTE_GEMM3) {
+  if (route == ROUTE_GEMM) {
     backward_f32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale, head,
                  d_out, rows, (const float*)ubar, (const float*)fbar, (const float*)gbar,
-                 (float*)xbar, (float*)wbar, (float*)bbar, (float*)scratch, splits,
-                 route == ROUTE_GEMM3, st);
+                 (float*)xbar, (float*)wbar, (float*)bbar, (float*)scratch, splits, st);
     return (int)cudaGetLastError();
   }
-  if (route != ROUTE_SWEEP && route != ROUTE_TF32X3) return cudaErrorInvalidValue;
+  if (route != ROUTE_SWEEP && route != ROUTE_TF32X3 && route != ROUTE_BF16X3)
+    return cudaErrorInvalidValue;
   if (!sweep_takes(net, multires, rows, route == ROUTE_SWEEP ? 128 : 64) ||
       d_out > net.l[net.n - 1].np || d_out <= WIDTH)
     return cudaErrorInvalidValue;
   cudaError_t err = set_smem_attributes();
   if (err != cudaSuccess) return (int)err;
   if (route == ROUTE_TF32X3)
-    return backward_x32(net, (const float*)x, (const float*)w, (const float*)b, multires, scale,
-                        head, d_out, rows, (const float*)ubar, (const float*)fbar,
-                        (const float*)gbar, (float*)xbar, (float*)wbar, (float*)bbar,
-                        (uint8_t*)scratch, splits, st);
+    return backward_x32<ROUTE_TF32X3>(net, (const float*)x, (const float*)w, (const float*)b,
+                                      multires, scale, head, d_out, rows, (const float*)ubar,
+                                      (const float*)fbar, (const float*)gbar, (float*)xbar,
+                                      (float*)wbar, (float*)bbar, (uint8_t*)scratch, splits, st);
+  if (route == ROUTE_BF16X3)
+    return backward_x32<ROUTE_BF16X3>(net, (const float*)x, (const float*)w, (const float*)b,
+                                      multires, scale, head, d_out, rows, (const float*)ubar,
+                                      (const float*)fbar, (const float*)gbar, (float*)xbar,
+                                      (float*)wbar, (float*)bbar, (uint8_t*)scratch, splits, st);
   FastScratch fs;
   carve_fast(net, rows, true, splits, (uint8_t*)scratch, &fs);
   pack_weights(net, (const float*)w, fs.w16, st);
@@ -2684,7 +2840,7 @@ int fd_backward(const void* x, const void* w, const void* b, int n_layers, const
   g.nx_slots = fs.nx_slots; g.ng_slots = fs.ng_slots; g.n_tiles = fs.n_tiles;
   const int n_items = fill_items(net, a, g.item);
   if (n_items < 0) return cudaErrorInvalidValue;
-  wgrad_kernel<<<dim3(n_items, splits), FT, WGRAD_SMEM, st>>>(g);
+  wgrad_kernel<false><<<dim3(n_items, splits), FT, WGRAD_SMEM, st>>>(g);
   reduce_kernel<<<(unsigned)((net.w_total + 255) / 256), 256, 0, st>>>(fs.part, splits,
                                                                        net.w_total, (float*)wbar);
   reduce_kernel<<<(unsigned)((net.b_total + 255) / 256), 256, 0, st>>>(fs.bpart, fs.grid,

@@ -28,7 +28,9 @@ Tiers (``cfg.fused_precision``), with the JAX package's ``_DOTS``:
   the tensor cores with each operand split into tf32 hi = rna(v) and lo =
   rna(v - hi) and three passes lo hi + hi lo + hi hi (``tf32x3_mm`` is its
   plain version); on any other net, "gemm", f32 GEMMs on the CUDA cores.
-* "high": bf16x3, as the TPU kernel's ``_dot3`` runs on the MXU. Every pass
+* "high": bf16x3, as the TPU kernel's ``_dot3`` runs on the MXU, on route
+  "bf16x3" (the sweeps' design with bf16 passes; ``bf16x3_mm`` and
+  ``bf16x3_rev`` are its plain products). Every pass
   rounds both operands to bf16 and accumulates in f32. A product of an
   activation or a tangent t with W splits both: (t_hi W_hi + t_hi W_lo) +
   t_lo W_hi, hi = bf16(v) and lo = bf16(v - hi). A product of a cotangent g
@@ -69,15 +71,15 @@ from . import build
 
 TILE = 64  # the kernels' column tile; every padded width is a multiple
 # how a call runs (the kernels' ROUTE_* constants): the bf16 sweeps
-# ("default"), the bf16x3 GEMMs ("high"), the 3xTF32 sweeps and the f32
+# ("default"), the bf16x3 sweeps ("high"), the 3xTF32 sweeps and the f32
 # CUDA-core GEMMs ("highest")
-ROUTE_CODE = {"gemm": 0, "sweep": 1, "gemm3": 2, "tf32x3": 3}
+ROUTE_CODE = {"gemm": 0, "sweep": 1, "bf16x3": 2, "tf32x3": 3}
 ROUTES = tuple(ROUTE_CODE)
-ROW_TILE = {"gemm": 64, "gemm3": 64, "sweep": 128, "tf32x3": 64}  # rows are padded to the route's tile
+ROW_TILE = {"gemm": 64, "sweep": 128, "bf16x3": 64, "tf32x3": 64}  # rows are padded to the route's tile
 # split-K partial sums of the weight cotangent ("sweep": 20 output tiles x
-# 13 splits are two waves of blocks on 132 SMs; "tf32x3": 38 tiles x 24,
-# 6.9 waves, so that the last wave is nearly full)
-W_SPLITS = {"gemm": 64, "gemm3": 64, "sweep": 13, "tf32x3": 24}
+# 13 splits are two waves of blocks on 132 SMs; "tf32x3" and "bf16x3": 38
+# tiles x 24, 6.9 waves, so that the last wave is nearly full)
+W_SPLITS = {"gemm": 64, "sweep": 13, "bf16x3": 24, "tf32x3": 24}
 SWEEP_WIDTH = 256  # hidden width of the sweeps
 HEADS = {"abs": 0, "square": 1, "sdf": 2}
 TIERS = ("default", "high", "highest")
@@ -229,7 +231,7 @@ def route_for(lay: Layout, tier: str) -> str:
             f"the '{tier}' kernels take a {TILE}-wide embedding, {SWEEP_WIDTH}-wide hidden "
             f"layers and a head of {SWEEP_WIDTH + 1} to {SWEEP_WIDTH + TILE} outputs; use "
             f"fused_precision='highest' for {lay}")
-    return "sweep" if tier == "default" else "gemm3"
+    return "sweep" if tier == "default" else "bf16x3"
 
 
 def _row_map(lay: Layout, l: int):
@@ -333,6 +335,31 @@ def _split(t: torch.Tensor):
     return hi, _bf16(t - hi)
 
 
+def bf16x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the "bf16x3" kernels run a forward product: both operands
+    split, three passes with f32 sums, the small terms first (lo hi + hi lo +
+    hi hi) into one accumulator; lo lo is dropped. JAX's _dot3 adds the same
+    three passes in another order."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def bf16x3_rev(g: torch.Tensor, b: torch.Tensor):
+    """(P, S) of a cotangent g times b as the "bf16x3" kernels keep them, in
+    two accumulators: P = bf16(g) b_hi, S = bf16(g) b_lo. The product is
+    ``dot3_sum(P, S)``."""
+    bh, bl = _split(b)
+    gh = _bf16(g)
+    return gh @ bh, gh @ bl
+
+
+def dot3_sum(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """P + bf16((S + P) - P): JAX's transpose of _dot3's cast of W, through
+    which the W_lo part's sum passes."""
+    return p + _bf16((s + p) - p)
+
+
 def _fwd_mm(inp: torch.Tensor, W: torch.Tensor, alpha: float, tier: str) -> torch.Tensor:
     """alpha inp W of an activation or a tangent. At "high" the scaled input
     is split (JAX divides the skip concat before its _dot3)."""
@@ -351,7 +378,7 @@ def _rev_mm(g: torch.Tensor, W: torch.Tensor, alpha: float, tier: str) -> torch.
     wh, wl = _split(W)
     gh = _bf16(g)
     p = gh @ wh.T
-    return alpha * (p + _bf16((gh @ wl.T + p) - p))
+    return alpha * dot3_sum(p, gh @ wl.T)
 
 
 def _w_mm(ins, tins, abar, gam, alpha: float, tier: str) -> torch.Tensor:
@@ -361,8 +388,7 @@ def _w_mm(ins, tins, abar, gam, alpha: float, tier: str) -> torch.Tensor:
         return alpha * (_mm(ins.T, abar, tier) + _mm(tins.T, gam, tier))
     xh, xl = _split(alpha * torch.cat([ins, tins], 0))
     g = _bf16(torch.cat([abar, gam], 0))
-    h = xh.T @ g
-    return h + _bf16((xl.T @ g + h) - h)
+    return dot3_sum(xh.T @ g, xl.T @ g)
 
 
 def _pe(x: torch.Tensor, lay: Layout):

@@ -1,21 +1,36 @@
 #!/usr/bin/env python3
-"""Where the time of K1 and K2 at tier "highest" goes, on the card.
+"""Where the time of K1 and K2 at each tier goes, on the card.
 
-    python3 scripts/torch_fd_variants.py [--points 58368] [--out exp/fd_variants.json]
+    python3 scripts/torch_fd_variants.py [--tier highest ...] [--points 58368 ...]
+        [--variants NAME ...] [--root DIR] [--outputs FILE]
+        [--out exp/fd_variants.json]
 
 Builds edited copies of ``neuraludf_tpu_torch/csrc/fused_distance.cu``
-(``VARIANTS``: text substitutions, each a question about the 3xTF32 route)
-with ``nvcc`` for sm_90a, all at once, into ``build/fd_variants/``; then, for
-each, times K1 and K2 at tier "highest" on the main-path net (the inputs of
-``chip_smoke.check_kernels``) with CUDA events, gives their largest error
-against the explicit f32 version (a variant that drops work is wrong on
+(``VARIANTS[tier]``: text substitutions, each a question about the tier's
+route on the main-path net: 3xTF32 at "highest", bf16x3 at "high"; "route",
+at every tier, is the package's own library, unedited) with ``nvcc`` for
+sm_90a, all at once, into ``build/fd_variants/``; then, for each tier and
+variant, times K1 and K2 at the tier on the
+main-path net (the inputs of ``chip_smoke.check_kernels``; K2 at the first
+point count only) with CUDA events, gives their largest error against the
+explicit version at the tier (a variant that drops work is wrong on
 purpose: its time is what the dropped work cost), and the device time of
-each kernel of a call (torch.profiler). It also times one warpgroup MMA
-loop alone (``PEAK_SRC``: 2 x 12 tf32 ``wgmma`` m64n128k8 and m64n256k8,
-A from registers or from shared memory, bf16 m64n256k16 beside them) on
-every SM, to show what the tensor cores give this instruction. Prints one
-JSON line (also written to ``--out``) with the card's name and power limit.
-Needs one CUDA card; imports nothing of the JAX package.
+each kernel of a call (torch.profiler); for "route" also the explicit
+version's time and the CUDA launches of one call. Unless only "route" is
+asked for, it also times one warpgroup MMA loop alone (``PEAK_SRC``: 2 x 12
+tf32 ``wgmma`` m64n128k8 and m64n256k8, A from registers or from shared
+memory, bf16 m64n256k16 beside them) on every SM, to show what the tensor
+cores give this instruction.
+
+``--root DIR`` runs "route" alone from another checkout of the port (an
+older commit unpacked with ``git archive``): its source, its wrapper and its
+``chip_smoke``, so that two versions are timed in one chip call, in turns.
+``--outputs FILE`` keeps the route's K1 and K2 outputs there, or, where
+FILE exists, compares them with the ones it holds bit for bit: running the
+parent with it first and the change after says whether the change moved a
+single bit. Prints one JSON line (also written to ``--out``) with the
+card's name and power limit. Needs one CUDA card; imports nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -30,26 +45,42 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-OUT = ROOT / "build" / "fd_variants"
 
-MMAS = """  wgmma_tf32<N>(tmp, al[q], make_desc64(sb[q]), q != 0);
-      wgmma_tf32<N>(tmp, ah[q], make_desc64(sb[q] + 32), 1);"""
-# name -> [(text of the source, replacement)]
+TF32_TIER = "template <> struct XTier<ROUTE_TF32X3> { static constexpr int KS = 8, CH = 2, LEAD = 6; };"
+B3_TIER = "template <> struct XTier<ROUTE_BF16X3> { static constexpr int KS = 16, CH = 4, LEAD = 4; };"
+NO_LOADS = [("    cp_async16(dst + row * 64 + ((ch ^ ((row >> 1) & 3)) << 4), src + row * 16 + ch * 4);\n", "")]
+# tier -> name -> [(text of the source, replacement)]
 VARIANTS = {
-    "route": [],
-    # four k8 steps between two f32 flushes, in place of two
-    "chunk4": [("#define X_CHUNK_STEPS 2 ", "#define X_CHUNK_STEPS 4 "),
-               ("#define X_LEAD 6 ", "#define X_LEAD 4 ")],
-    # activate's polynomial logarithm in the forward epilogues
-    "poly_softplus": [("  asm(\"lg2.approx.ftz.f32 %0, %1;\" : \"=f\"(l) : \"f\"(1.f + t));\n"
-                       "  sg = a >= 0.f ? r : t * r;\n"
-                       "  h = fmaf(l, 6.9314718055994531e-3f, fmaxf(a, 0.f));",
-                       "  (void)l;\n  activate(a, h, sg);")],
-    # no products of the sweeps (the small passes and the big ones)
-    "no_sweep_mma": [(MMAS, ""),
-                     ("    if (q < c) wgmma_tf32<N>(tmp, ah[q], make_desc64(sb[q]), 1);", "")],
-    # no weight slices loaded into the sweeps' ring
-    "no_sweep_loads": [("    cp_async16(dst + row * 64 + ((ch ^ ((row >> 1) & 3)) << 4), src + row * 16 + ch * 4);\n", "")],
+    "default": {"route": []},
+    "highest": {
+        "route": [],
+        # four k8 steps between two f32 flushes, in place of two
+        "chunk4": [(TF32_TIER, TF32_TIER.replace("CH = 2, LEAD = 6", "CH = 4, LEAD = 4"))],
+        # activate's polynomial logarithm in the forward epilogues
+        "poly_softplus": [("  asm(\"lg2.approx.ftz.f32 %0, %1;\" : \"=f\"(l) : \"f\"(1.f + t));\n"
+                           "  sg = a >= 0.f ? r : t * r;\n"
+                           "  h = fmaf(l, 6.9314718055994531e-3f, fmaxf(a, 0.f));",
+                           "  (void)l;\n  activate(a, h, sg);")],
+        # no products of the sweeps (the small passes and the big ones)
+        "no_sweep_mma": [("        wgmma_tf32<N>(acc2, al[q], make_desc64(sb[q]), q != 0);\n"
+                          "        wgmma_tf32<N>(acc2, ah[q], make_desc64(sb[q] + 32), 1);\n", ""),
+                         ("      if (q < c) wgmma_tf32<N>(acc2, ah[q], make_desc64(sb[q]), 1);", "      ;")],
+        # no weight slices loaded into the sweeps' ring
+        "no_sweep_loads": NO_LOADS,
+    },
+    "high": {
+        "route": [],
+        # two k16 steps a chunk, six slices ahead, in place of four and four
+        "chunk2": [(B3_TIER, B3_TIER.replace("CH = 4, LEAD = 4", "CH = 2, LEAD = 6"))],
+        # no products of the sweeps (forward and reverse)
+        "no_sweep_mma": [("        wgmma_bf16<N>(acc, ah[q], make_desc64(sb[q]), 1);\n"
+                          "        wgmma_bf16<N>(acc2, ah[q], make_desc64(sb[q] + 32), 1);\n", ""),
+                         ("        wgmma_bf16<N>(acc, al[q], make_desc64(sb[q]), 1);\n"
+                          "        wgmma_bf16<N>(acc, ah[q], make_desc64(sb[q] + 32), 1);\n", ""),
+                         ("      if (q < c) wgmma_bf16<N>(acc, ah[q], make_desc64(sb[q]), 1);", "      ;")],
+        # no weight slices loaded into the sweeps' ring
+        "no_sweep_loads": NO_LOADS,
+    },
 }
 
 PEAK_SRC = r'''
@@ -158,15 +189,15 @@ def nvcc(args) -> subprocess.CompletedProcess:
                            "-O3"] + args, capture_output=True, text=True)
 
 
-def build_variant(name: str, subs) -> Path:
-    src = (ROOT / "neuraludf_tpu_torch" / "csrc" / "fused_distance.cu").read_text()
+def build_variant(root: Path, out: Path, name: str, subs) -> Path:
+    src = (root / "neuraludf_tpu_torch" / "csrc" / "fused_distance.cu").read_text()
     for old, new in subs:
         if old not in src:
             raise SystemExit(f"variant {name}: its text is not in the source: {old[:60]!r}")
         src = src.replace(old, new)
-    (OUT / f"{name}.cu").write_text(src)
-    lib = OUT / f"lib{name}.so"
-    r = nvcc(["-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(OUT / f"{name}.cu")])
+    (out / f"{name}.cu").write_text(src)
+    lib = out / f"lib{name}.so"
+    r = nvcc(["-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(out / f"{name}.cu")])
     if r.returncode:
         raise SystemExit(f"variant {name} does not build:\n{r.stderr[-3000:]}")
     return lib
@@ -183,12 +214,39 @@ def bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def compare_outputs(path: Path, outputs: dict) -> dict:
+    """Keeps outputs at path, or compares them bit for bit with the ones
+    kept there: per kernel and point count, equal or the largest
+    difference."""
+    import torch
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, path)
+        return {"kept": str(path)}
+    kept = torch.load(path)
+    result = {}
+    for key, outs in outputs.items():
+        pairs = list(zip(outs, kept[key]))
+        result[key] = {"bit_equal": all(torch.equal(a, b) for a, b in pairs),
+                       "max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs)}
+    return {"compared_with": str(path), "outputs": result}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--points", type=int, default=58368)
+    ap.add_argument("--tier", choices=sorted(VARIANTS), nargs="+", default=["highest"])
+    ap.add_argument("--points", type=int, nargs="+", default=[58368])
+    ap.add_argument("--variants", nargs="+", default=None)
+    ap.add_argument("--root", default=str(ROOT))
+    ap.add_argument("--outputs", default="")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
+    root = Path(args.root).resolve()
+    names = {tier: args.variants or list(VARIANTS[tier]) for tier in args.tier}
+    peak_loop = any(v != ["route"] for v in names.values())
+    if root != ROOT and peak_loop:
+        raise SystemExit("--root runs the unedited route alone: --variants route")
+    sys.path.insert(0, str(root))
     import torch
     if not torch.cuda.is_available():
         print("torch_fd_variants: no CUDA device", file=sys.stderr)
@@ -196,58 +254,88 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from neuraludf_tpu_torch import config as config_mod
+    from neuraludf_tpu_torch.ops import build
     from neuraludf_tpu_torch.ops import fused_distance as fd
     from torch.profiler import ProfilerActivity, profile
 
-    OUT.mkdir(parents=True, exist_ok=True)
+    out_dir = root / "build" / "fd_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
-    (OUT / "peak.cu").write_text(peak_source())
-    with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
-        peak = pool.submit(nvcc, ["-o", str(OUT / "peak"), str(OUT / "peak.cu")])
-        libs = dict(zip(VARIANTS, pool.map(lambda kv: build_variant(*kv), VARIANTS.items())))
-        peak = peak.result()
-    if peak.returncode:
+    # "route" is the package's own library; each edited variant a library of its own
+    edited = {(tier, name): VARIANTS[tier][name] for tier in args.tier for name in names[tier]
+              if name != "route"}
+    (out_dir / "peak.cu").write_text(peak_source())
+    with ThreadPoolExecutor(len(edited) + 2) as pool:
+        peak = pool.submit(nvcc, ["-o", str(out_dir / "peak"), str(out_dir / "peak.cu")]) \
+            if peak_loop else None
+        own = pool.submit(build.compile_sources, ["fused_distance"])
+        libs = dict(zip(edited, pool.map(
+            lambda kv: build_variant(root, out_dir, f"{kv[0][0]}_{kv[0][1]}", kv[1]),
+            edited.items())))
+        own.result()
+        peak = peak.result() if peak_loop else None
+    if peak is not None and peak.returncode:
         raise SystemExit(f"the MMA loop does not build:\n{peak.stderr[-3000:]}")
     print(f"built in {time.time() - t0:.1f} s", flush=True)
     card = cs.card_line()
     mma = [json.loads(line) for line in subprocess.run(
-        [str(OUT / "peak")], capture_output=True, text=True, check=True).stdout.splitlines()]
+        [str(out_dir / "peak")], capture_output=True, text=True, check=True).stdout.splitlines()
+    ] if peak_loop else []
 
     ucfg = config_mod.load(str(cs.CONF)).model.udf_network
-    _, kin = cs.check_kernels(ucfg, torch.device("cuda:0"), args.points, tiers=("highest",))
-    x, wflat, bflat, lay = kin["x"], kin["wflat"], kin["bflat"], kin["lay"]
-    cot = (kin["ubar"], kin["fbar"], kin["gbar"])
-    with torch.no_grad():
-        ref = {"K1": fd.explicit_forward(x, wflat, bflat, lay, "highest"),
-               "K2": fd.explicit_backward(x, wflat, bflat, lay, "highest", *cot)}
-    calls = {"K1": lambda: fd.fused_forward(x, wflat, bflat, lay, "highest"),
-             "K2": lambda: fd.fused_backward(x, wflat, bflat, lay, "highest", *cot)}
     library = fd.library
-    results = {}
+    results, outputs = {}, {}
     try:
-        for name, path in libs.items():
-            lib = bind(path)
-            fd.library = lambda lib=lib: lib
-            row = {}
-            for k, call in calls.items():
-                out = call()
-                err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(out, ref[k]))
-                ms = [cs.cuda_ms(call) for _ in range(2)]
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(3):
-                        call()
-                    torch.cuda.synchronize()
-                kernels = {e.key.split("(")[0]: e.self_device_time_total / 3e3
-                           for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA
-                           and e.self_device_time_total > 0}
-                row[k] = {"ms": ms, "max_rel_err": err, "kernels_ms": kernels}
-                print(f"{name:16s} {k} {ms[0]:.3f} {ms[1]:.3f} ms  max rel. err {err:.2e}  "
-                      f"{kernels}  [{card}]", flush=True)
-            results[name] = row
+        for tier in args.tier:
+            for i, n in enumerate(args.points):
+                fd.library = library
+                _, kin = cs.check_kernels(ucfg, torch.device("cuda:0"), n, backward=i == 0,
+                                          tiers=(tier,))
+                x, wflat, bflat, lay = kin["x"], kin["wflat"], kin["bflat"], kin["lay"]
+                cot = (kin["ubar"], kin["fbar"], kin["gbar"])
+                plain = {"K1": lambda: fd.explicit_forward(x, wflat, bflat, lay, tier)}
+                calls = {"K1": lambda: fd.fused_forward(x, wflat, bflat, lay, tier)}
+                if i == 0:
+                    plain["K2"] = lambda: fd.explicit_backward(x, wflat, bflat, lay, tier, *cot)
+                    calls["K2"] = lambda: fd.fused_backward(x, wflat, bflat, lay, tier, *cot)
+                with torch.no_grad():
+                    ref = {k: f() for k, f in plain.items()}
+                    for name in names[tier]:
+                        if name == "route":
+                            fd.library = library
+                        else:
+                            lib = bind(libs[(tier, name)])
+                            fd.library = lambda lib=lib: lib
+                        for k, call in calls.items():
+                            out = call()
+                            err = max(float((a - b).abs().max() / b.abs().max())
+                                      for a, b in zip(out, ref[k]))
+                            ms = [cs.cuda_ms(call) for _ in range(2)]
+                            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                                for _ in range(3):
+                                    call()
+                                torch.cuda.synchronize()
+                            kernels = {e.key.split("(")[0]: e.self_device_time_total / 3e3
+                                       for e in prof.key_averages()
+                                       if e.device_type == torch.autograd.DeviceType.CUDA
+                                       and e.self_device_time_total > 0}
+                            row = {"ms": ms, "max_rel_err": err, "kernels_ms": kernels}
+                            if name == "route":
+                                row["plain_ms"] = cs.cuda_ms(plain[k], 3)
+                                row["cuda_launches_per_call"] = cs.cuda_launches(call)
+                                outputs[f"{tier}/{k}@{n}"] = tuple(t.cpu() for t in out)
+                            results.setdefault(tier, {}).setdefault(name, {})[f"{k}@{n}"] = row
+                            print(f"{tier:8s} {name:16s} {k} N={n} {ms[0]:.3f} {ms[1]:.3f} ms  "
+                                  f"max rel. err {err:.2e}  {kernels}  [{card}]", flush=True)
+                del ref, x, wflat, bflat, cot, kin
     finally:
         fd.library = library
-    line = {"card": card, "points": args.points, "mma_loop": mma, "variants": results}
+    lay = fd.layout_for(ucfg)
+    line = {"card": card, "root": str(root), "routes": {t: fd.route_for(lay, t) for t in args.tier},
+            "points": args.points, "mma_loop": mma, "variants": results,
+            "seconds": time.time() - t0}
+    if args.outputs and outputs:
+        line["outputs"] = compare_outputs(Path(args.outputs), outputs)
     print(json.dumps(line), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

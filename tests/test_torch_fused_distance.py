@@ -271,7 +271,7 @@ def test_layout_padding_round_trip(case):
     assert lay.pe_w == 64 and all(v % fd.TILE == 0 for v in lay.kp + lay.np_)
     assert lay.np_[-1] == head_np and fd.default_tier_takes(lay) == takes
     # rows are padded per route: the bf16 sweeps take 128-row tiles, the others 64
-    assert fd.ROW_TILE == {"gemm": 64, "gemm3": 64, "sweep": 128, "tf32x3": 64}
+    assert fd.ROW_TILE == {"gemm": 64, "sweep": 128, "bf16x3": 64, "tf32x3": 64}
     if case == "small":
         assert lay.n_true == (40, 13, 40, 40, 33)
         assert lay.skip == (False, False, True, False, False)
@@ -396,15 +396,117 @@ def test_tf32x3_products_match_f32_and_jax_highest_at_main_width(head):
 def test_highest_route_over_layout_cases(case):
     """Tier "highest" takes the 3xTF32 sweeps exactly where the "default"
     sweeps take the net, else the f32 CUDA-core GEMMs; "default" and "high"
-    keep their routes and refuse the other nets before any launch."""
+    (the bf16x3 sweeps) take the same nets and refuse the others before any
+    launch."""
     kw, _, _, takes = LAYOUT_CASES[case]
     lay = fd.layout_for(tconfig.UDFNetworkConfig(**kw))
     assert fd.highest_route(lay) == ("tf32x3" if takes else "gemm")
     assert fd.route_for(lay, "highest") == fd.highest_route(lay)
-    for tier, route in (("default", "sweep"), ("high", "gemm3")):
+    for tier, route in (("default", "sweep"), ("high", "bf16x3")):
         if takes:
             assert fd.route_for(lay, tier) == route
         else:
             with pytest.raises(ValueError):
                 fd.route_for(lay, tier)
     assert set(fd.ROW_TILE) == set(fd.ROUTES) == set(fd.W_SPLITS)
+
+
+# The "bf16x3" route's plain products (tier "high" on the sweeps' nets) at
+# the main-path width, relative to each output's largest entry: against the
+# explicit "high" version, which adds the same passes in JAX's order (measured
+# 1.1e-7 at most); against JAX's _dot3 with TPU passes and its VJP (the same
+# roundings; measured 5.3e-6, the skip's x / sqrt(2) against x * alpha moving
+# a value across a bf16 boundary), TOL_HIGH_TPU; against the JAX package's
+# _dot3 as the CPU runs it (f32 passes: its lo and its cotangent unrounded),
+# the forward within TOL_HIGH_TPU (measured 4.2e-6) and the transposes within
+# TOL_B3_CPU_VJP (the bf16 cotangent, 2^-9 of each term: measured 1.8e-3).
+TOL_B3_ORDER = 1e-6
+TOL_B3_CPU_VJP = 5e-3
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_bf16x3_products_match_explicit_high_and_jax_dot3_at_main_width(skip):
+    """``bf16x3_mm`` (the forward products: alpha A split, three passes, the
+    small terms first), ``bf16x3_rev`` with ``dot3_sum`` (the reverse
+    products: P and S kept apart, P + bf16((S + P) - P)) and the weight
+    cotangent (H and L apart) on a [4096 x 256] (the skip layer: [4096 x
+    320], alpha = 1/sqrt(2)) activation and a 256-wide W, seeded with
+    numpy."""
+    rng = np.random.RandomState(7)
+    n, k = 4096, 320 if skip else 256
+    alpha = 1 / np.sqrt(2) if skip else 1.0
+    a = (rng.uniform(0, 0.3, (n, k))).astype(np.float32)
+    w = (rng.randn(k, 256) / np.sqrt(k)).astype(np.float32)
+    g = (rng.randn(n, 256) * 1e-2).astype(np.float32)
+    at, wt, gt = (torch.tensor(v) for v in (a, w, g))
+    # the weight cotangent: the left side alpha A split, the right side bf16,
+    # H and L kept apart over the split-K sums, combined by dot3_sum
+    ah, al = fd._split(alpha * at)
+    gb = fd._bf16(gt)
+    got = {"y": fd.bf16x3_mm(alpha * at, wt),
+           "xbar": alpha * fd.dot3_sum(*fd.bf16x3_rev(gt, wt.T)),
+           "wbar": fd.dot3_sum(ah.T @ gb, al.T @ gb)}
+    high = {"y": fd._fwd_mm(at, wt, alpha, "high"), "xbar": fd._rev_mm(gt, wt, alpha, "high"),
+            "wbar": fd._w_mm(at[:n // 2], at[n // 2:], gt[:n // 2], gt[n // 2:], alpha, "high")}
+    for name in got:
+        assert_rel(got[name].numpy(), high[name].numpy(), TOL_B3_ORDER, f"bf16x3 vs high: {name}")
+    for ref, dot, tol_vjp in (("TPU passes", dot3_tpu, TOL_HIGH_TPU),
+                              ("CPU passes", jfd._dot3, TOL_B3_CPU_VJP)):
+        f = lambda x, ww: dot(x / np.float32(np.sqrt(2)) if skip else x, ww)
+        y, vjp = jax.vjp(f, jnp.asarray(a), jnp.asarray(w))
+        xbar, wbar = vjp(jnp.asarray(g))
+        assert_rel(got["y"].numpy(), y, TOL_HIGH_TPU, f"bf16x3 vs _dot3 ({ref}): y")
+        assert_rel(got["xbar"].numpy(), xbar, tol_vjp, f"bf16x3 vs _dot3 VJP ({ref}): x̄")
+        assert_rel(got["wbar"].numpy(), wbar, tol_vjp, f"bf16x3 vs _dot3 VJP ({ref}): W̄")
+    # the bf16 cotangent is what the transposes round: f32 is far from them
+    f32 = (alpha * gt @ wt.T).numpy()
+    assert float(np.abs(got["xbar"].numpy() - f32).max() / np.abs(f32).max()) > 20 * TOL_HIGH_TPU
+
+
+def rms_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(((a - b) ** 2).mean() / (b ** 2).mean()))
+
+
+# The explicit "high" version on the net of chip_smoke.check_high_rounding's
+# skip case (two 256-wide hidden layers, the second fed [h; PE(x)] / sqrt(2),
+# the 257-wide head), against JAX's _value_feat_grad with the TPU passes'
+# _dot3 under jax.vjp: RMS difference over RMS within TOL_SKIP_RMS (measured
+# 1.7e-4 at most, x̄ with the abs and sdf heads: one ulp on x moves the
+# explicit version itself by up to 1.5e-4 on this net, the rounding flips
+# cascading through sigma(100 a) over two layers), while f32 ("highest") lies
+# at least SKIP_SEPARATION times as far from JAX in grad, x̄, W̄ and b̄
+# (measured 7.6x at least, the abs head's gradient). On the card the "high"
+# kernels are held to this explicit version on this net.
+TOL_SKIP_RMS = 3e-4
+SKIP_SEPARATION = 5
+
+
+@pytest.mark.parametrize("head", ["abs", "square", "sdf"])
+def test_high_explicit_matches_jax_dot3_on_a_skip_net_at_main_width(head):
+    kw = dict(udf_type=head, n_layers=2, skip_in=(1,))
+    jc, tc = jconfig.UDFNetworkConfig(**kw), tconfig.UDFNetworkConfig(**kw)
+    lay = fd.layout_for(tc)
+    assert lay.skip == (False, True, False) and fd.route_for(lay, "high") == "bf16x3"
+    n = 4096
+    rng = np.random.RandomState(5)
+    p = jf.init_distance_field(jax.random.PRNGKey(5), jc)
+    p = jax.tree_util.tree_map(lambda a: a + 0.01 * rng.randn(*a.shape).astype(np.float32), p)
+    x = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    cot = (rng.randn(n, 1).astype(np.float32), rng.randn(n, jc.d_out - 1).astype(np.float32),
+           rng.randn(n, 3).astype(np.float32))
+    ws, bs = jfd.effective_weights(p, jc)
+    f = lambda xx, ws_, bs_: jfd._value_feat_grad(xx, ws_, bs_, jc, dot3_tpu)
+    out, vjp = jax.vjp(f, jnp.asarray(x), ws, bs)
+    xbar, wsbar, bsbar = vjp(tuple(jnp.asarray(c) for c in cot))
+    flat = lambda ts: np.concatenate([np.asarray(t).reshape(-1) for t in ts])
+    ref = [np.asarray(o) for o in out] + [np.asarray(xbar), flat(wsbar), flat(bsbar)]
+    got = {}
+    for tier in ("high", "highest"):
+        o, xb, wsb, bsb = explicit_at(tc, ws, bs, x, cot, tier)
+        got[tier] = o + [xb, flat(t.numpy() for t in wsb), flat(t.numpy() for t in bsb)]
+    for i, name in enumerate(("udf", "feat", "grad", "xbar", "wbar", "bbar")):
+        err = rms_rel(got["high"][i], ref[i])
+        assert err <= TOL_SKIP_RMS, (name, err)
+        if name not in ("udf", "feat"):
+            assert rms_rel(got["highest"][i], ref[i]) >= SKIP_SEPARATION * err, name
