@@ -94,6 +94,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
     process copies) from the stage-1 checkpoint against the single-scan
     graphed window from the same state, bit for bit (K1 = K2 = 20), and both
     timed in turns;
+11c. ``[garment]``: the DeepFashion3D recipe (``confs/udf_garment_blending.conf``:
+    512 rays, 64 + 80 samples by "mix" up-sampling, no background NeRF,
+    ``reg_weights_schedule``) at full width through
+    ``scripts/torch_benchmark_garment.py``'s functions on an 8-view 300x400
+    garment: K1/K2 at "default" on the garment step's 73,728 rows against
+    their plain versions; 150 graphed stage-1 steps and 50 steps of the
+    garment finetune (``is_finetune``; its pixel and patch weights are 0, so
+    K3 reads 0), K1 = K2 = one a step, finite and falling losses; 5 x 20
+    graphed garment steps against the DTU stage-1 step in turns, the
+    replayed step's kernels and busy share; the protocol's extraction at
+    128³ of the stage-1 and the finetuned field, and the DF3D score of the
+    stage-1 one (a record, no bound);
+11d. ``[bmvs]``: the committed BlendedMVS-layout scene (``tests/data/bmvs_sphere``,
+    8 views 576x768, cv2-written JPEGs): every file decoded by
+    ``data/jpeg.read_jpeg`` on the host to the sha256 its manifest holds of
+    ``cv2.imread``'s array, the decode timed; ``Dataset(dataset_name="bmvs")``
+    on the card and one graphed window of 50 stage-1 steps at the DTU widths,
+    K1 = K2 = one a step;
 12. CUDA-event times of K1, K2 (each tier), K3, their plain versions and
     K3's library call, at the training shapes and at the validation chunk's; the profile
     of one validation chunk; the profile of a steady eager step of each
@@ -108,6 +126,7 @@ marching-cubes engine), the scene and the meshes go under ``build/``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -288,6 +307,30 @@ PROFILE_STEPS = 4  # multi-scan iterations under the profiler (S x 5,466 kernels
 # from the same state, bit for bit (over one process the all-gathers and
 # the all-reduce copy).
 DP_STEPS = 20
+# The garment phase: the DeepFashion3D recipe (confs/udf_garment_blending.conf:
+# 512 rays, 64 + 80 samples by "mix" up-sampling, no background NeRF, the
+# 8x256 UDF net) through scripts/torch_benchmark_garment.py's configurations,
+# scene and score on a small garment scene; GARMENT_STEPS stage-1 iterations
+# in windows of 50, past the recipe's fix_geo_end (500: until then the
+# geometry keeps its initial values), then GARMENT_FT_STEPS of the garment
+# finetune (confs/udf_garment_blending_ft.conf's learning rates, is_finetune;
+# its pixel and patch weights are 0, so K3 does not run there), K1/K2 once a
+# step; K1/K2 at "default" at the garment step's own row count; 5 x 20 timed
+# graphed steps; each field's distance grid at GARMENT_MESH_RES (each
+# stage's geometry must have moved by a grid voxel somewhere), the
+# extraction of both fields (each must have a surface) and the DF3D score
+# of the finetuned one, as the protocol scores it. (A finetune from a stage
+# 1 that ends before fix_geo_end lifts the initial field off zero:
+# scripts/torch_garment_lift.py.)
+GARMENT_VIEWS, GARMENT_H, GARMENT_W = 8, 300, 400
+GARMENT_STEPS, GARMENT_FT_STEPS = 700, 50
+N_GARMENT_POINTS = 512 * (64 + 80)
+GARMENT_MESH_RES = 128
+# The BlendedMVS phase: the committed JPEG scene (scripts/torch_make_bmvs_fixture.py),
+# each file decoded by the port to the array its manifest hashes, then one
+# graphed window of BMVS_STEPS stage-1 steps at the DTU widths on it.
+BMVS_DIR = ROOT / "tests" / "data" / "bmvs_sphere"
+BMVS_STEPS = 50
 
 
 def log(msg: str) -> None:
@@ -756,39 +799,50 @@ def train_tier(tier, ckpt, common, exp_dir, n_stage1, dev, counters) -> dict:
 
 
 def time_graphed_tiers(ckpt, common, exp_dir, dev, card) -> dict:
-    """The graphed stage-1 step at every tier from the stage-1 checkpoint:
-    host-clock ms a step over TIMED_REPEATS repeats of TIMED_STEPS
-    iterations (a window of TIMED_STEPS, captured before the timing), the
-    tiers in turns, each ended by a synchronize."""
+    """The graphed stage-1 step at every tier from the stage-1 checkpoint,
+    the tiers in turns (``time_in_turns``)."""
     from neuraludf_tpu_torch import config as config_mod
     from neuraludf_tpu_torch.train.runner import Runner
 
-    runners, inputs, times = {}, {}, {}
+    runners = {}
     for tier in TIERS:
         cfg = config_mod.load(str(CONF), **dict(
             common, general__base_exp_dir=str(exp_dir / "timed" / tier),
             model__udf_network__fused_precision=tier))
         runners[tier] = Runner(cfg, device=dev, seed=0)
         runners[tier].load_checkpoint(ckpt)
-        inputs[tier] = window_inputs(runners[tier], TIMED_STEPS)
-        graphed_steps(runners[tier], *inputs[tier])  # warm-up and capture
-        times[tier] = []
-    for _ in range(TIMED_REPEATS):
-        for tier, runner in runners.items():
-            torch.cuda.synchronize()
-            t0 = time.time()
-            graphed_steps(runner, *inputs[tier])
-            torch.cuda.synchronize()
-            times[tier].append((time.time() - t0) / TIMED_STEPS * 1e3)
-    out = {}
-    for tier, ts in times.items():
-        med = sorted(ts)[len(ts) // 2]
-        out[tier] = {"median_ms": med, "min_ms": min(ts), "max_ms": max(ts), "ms": ts}
-        log(f"[tiers] graphed stage-1 step at fused_precision={tier}: median {med:.2f} ms (min "
-            f"{min(ts):.2f}, max {max(ts):.2f}; {TIMED_REPEATS} x {TIMED_STEPS} steps, the tiers "
-            f"in turns)  [{card}]")
+    out = time_in_turns({f"stage-1 step at fused_precision={tier}": r
+                         for tier, r in runners.items()}, "tiers", card)
     del runners
     torch.cuda.empty_cache()
+    return {tier: out[f"stage-1 step at fused_precision={tier}"] for tier in TIERS}
+
+
+def time_in_turns(runners: dict, tag: str, card) -> dict:
+    """Host-clock ms a graphed step of each runner (name -> Runner) over
+    TIMED_REPEATS repeats of TIMED_STEPS iterations (a window of
+    TIMED_STEPS, captured before the timing), the runners in turns, each
+    repeat ended by a synchronize."""
+    inputs = {}
+    for name, runner in runners.items():
+        inputs[name] = window_inputs(runner, TIMED_STEPS)
+        graphed_steps(runner, *inputs[name])  # warm-up and capture
+    times = {name: [] for name in runners}
+    for _ in range(TIMED_REPEATS):
+        for name, runner in runners.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            graphed_steps(runner, *inputs[name])
+            torch.cuda.synchronize()
+            times[name].append((time.time() - t0) / TIMED_STEPS * 1e3)
+    out = {}
+    for name, ts in times.items():
+        med = sorted(ts)[len(ts) // 2]
+        out[name] = {"median_ms": med, "min_ms": min(ts), "max_ms": max(ts), "ms": ts,
+                     "rays_per_s": runners[name].cfg.train.batch_size / med * 1e3}
+        log(f"[{tag}] graphed {name}: median {med:.2f} ms (min {min(ts):.2f}, max "
+            f"{max(ts):.2f}; {TIMED_REPEATS} x {TIMED_STEPS} steps in turns) = "
+            f"{out[name]['rays_per_s']:.0f} rays/s  [{card}]")
     return out
 
 
@@ -1871,6 +1925,210 @@ def check_dp(cfg, ckpt, dev, counters, card, exp_dir) -> dict:
         dist.destroy_process_group()
 
 
+def grid_udf(runner) -> torch.Tensor:
+    """The runner's distance field on the GARMENT_MESH_RES³ grid over
+    [-1, 1]³ that the extraction fills, flat, on the card."""
+    from neuraludf_tpu_torch.mesh.grid import fill_on_device
+
+    return fill_on_device(runner.params["udf"], runner.cfg.model.udf_network, [-1] * 3, [1] * 3,
+                          GARMENT_MESH_RES)
+
+
+def check_garment(dtu_cfg, ckpt, dev, counters, card) -> dict:
+    """[garment]: the DeepFashion3D recipe at full width through
+    scripts/torch_benchmark_garment.py's functions (scene, configurations,
+    score): K1/K2 at "default" on the garment step's N_GARMENT_POINTS rows
+    against both plain versions; GARMENT_STEPS graphed stage-1 steps and
+    GARMENT_FT_STEPS finetune steps, K1 = K2 = one a step and K3 never (the
+    garment finetune blends no pixels or patches), finite and falling
+    losses; each stage's geometry moved by a grid voxel; the graphed
+    garment step against the DTU stage-1 step (``dtu_cfg`` from ``ckpt``)
+    in turns, with its kernels and busy share a replay; the extraction at
+    GARMENT_MESH_RES of both fields, each with faces, and the DF3D score of
+    the finetuned one."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_benchmark_garment as garment
+
+    from neuraludf_tpu_torch.mesh.ply import load_ply
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    out = {}
+    scene_dir = BUILD / "smoke_scene" / "garment"
+    exp_dir = BUILD / "smoke_exp" / "garment"
+    out["scene_s"] = garment.build_scene(str(scene_dir), GARMENT_VIEWS, GARMENT_H, GARMENT_W)
+    log(f"[garment] scene: {GARMENT_VIEWS} views {GARMENT_W}x{GARMENT_H} in "
+        f"{out['scene_s']:.1f} s")
+    cfg = garment.stage1_config(str(exp_dir), str(scene_dir), iters=GARMENT_STEPS)
+    r, u = cfg.model.udf_renderer, cfg.model.udf_network
+    widths = (cfg.train.batch_size, r.n_samples, r.n_importance, r.n_outside, r.upsampling_type,
+              u.n_layers, u.d_hidden, u.fused_precision)
+    log(f"[garment] recipe: batch, samples, importance, outside, up-sampling, udf layers, "
+        f"width, tier = {widths}; fix_geo_end {cfg.train.fix_geo_end}")
+    if (widths != (512, 64, 80, 0, "mix", 8, 256, "default")
+            or cfg.train.batch_size * (r.n_samples + r.n_importance) != N_GARMENT_POINTS
+            or not cfg.train.fix_geo_end < GARMENT_STEPS):
+        raise AssertionError(f"[garment] not the garment recipe's widths, or stage 1 ends "
+                             f"before its geometry trains: {widths}")
+
+    log(f"[kernels] K1/K2 at N={N_GARMENT_POINTS} (a garment step's rows) at 'default'")
+    errors, _ = check_kernels(u, dev, N_GARMENT_POINTS, tiers=("default",))
+    out["kernel_errors"] = {f"{k}/{ref}/{o}": v for (k, _, ref, o), v in errors.items()}
+
+    runner = Runner(cfg, seed=0, reg_weights_schedule=True, device=dev)
+    grids = {"init": grid_udf(runner)}
+    out["launches"] = {"stage1": train_main_path(runner, cfg, exp_dir, counters,
+                                                 ("K1", "K2"))[0]}
+    stage1_ckpt = runner.save_checkpoint()
+    grids["stage1"] = grid_udf(runner)
+    ft_cfg = garment.finetune_config(cfg, GARMENT_FT_STEPS)
+    ft_runner = Runner(ft_cfg, seed=0, is_finetune=True, reg_weights_schedule=False, device=dev)
+    ft_runner.load_checkpoint(stage1_ckpt)
+    log(f"[garment] finetune from {Path(stage1_ckpt).name}: lr {ft_cfg.train.learning_rate} "
+        f"both groups (same_lr {ft_cfg.train.same_lr}), pixel/patch weights "
+        f"{ft_cfg.color_loss.color_pixel_weight}/{ft_cfg.color_loss.color_patch_weight}")
+    out["launches"]["finetune"] = train_main_path(ft_runner, ft_cfg, exp_dir, counters,
+                                                  ("K1", "K2"))[0]
+    log(f"[garment] K3 launches in the finetune: {out['launches']['finetune']['K3']} (its "
+        f"pixel and patch weights are 0: no blending step)")
+    grids["finetune"] = grid_udf(ft_runner)
+    voxel = 2.0 / (GARMENT_MESH_RES - 1)
+    out["grid"] = {"voxel": voxel,
+                   "min_udf": {k: float(g.min()) for k, g in grids.items()},
+                   "moved": {"stage1": float((grids["stage1"] - grids["init"]).abs().max()),
+                             "finetune": float((grids["finetune"] - grids["stage1"]).abs().max())}}
+    del grids
+    log(f"[garment] the field on the {GARMENT_MESH_RES}³ grid: min udf {out['grid']['min_udf']}; "
+        f"largest move {out['grid']['moved']} (a voxel is {voxel:.4f})")
+    if not min(out["grid"]["moved"].values()) > voxel:
+        raise AssertionError(f"[garment] a stage's geometry did not train: {out['grid']}")
+
+    # the garment step against the DTU stage-1 step, each graphed, in turns
+    timed_cfg = dataclasses.replace(cfg, general=dataclasses.replace(
+        cfg.general, base_exp_dir=str(exp_dir / "timed")))
+    g_runner = Runner(timed_cfg, seed=0, reg_weights_schedule=True, device=dev)
+    g_runner.load_checkpoint(stage1_ckpt)
+    d_runner = Runner(dtu_cfg, seed=0, device=dev)
+    d_runner.load_checkpoint(ckpt)
+    times = time_in_turns({"garment stage-1 step": g_runner, "DTU stage-1 step": d_runner},
+                          "garment", card)
+    out["times"] = {"garment": times["garment stage-1 step"], "dtu": times["DTU stage-1 step"]}
+    for k in counters.values():
+        k.launches = 0
+    out["profile"] = profile_window(g_runner, card)
+    out["launches_per_replay"] = {n: k.launches / TIMED_STEPS for n, k in counters.items()}
+    log(f"[garment] launches a replayed step: {out['launches_per_replay']}")
+    if out["launches_per_replay"] != {"K1": 1.0, "K2": 1.0, "K3": 0.0}:
+        raise AssertionError(f"[garment] K1/K2 not once a replayed step: "
+                             f"{out['launches_per_replay']}")
+    del g_runner, d_runner
+    torch.cuda.empty_cache()
+
+    stage1_faces = len(load_ply(runner.extract_udf_mesh(
+        world_space=False, resolution=GARMENT_MESH_RES, dist_threshold_ratio=5.0))[1])
+    t0 = time.time()
+    timings = {}
+    raw_ply = ft_runner.extract_udf_mesh(world_space=False, resolution=GARMENT_MESH_RES,
+                                         dist_threshold_ratio=5.0, timings=timings)
+    out["extract_s"] = time.time() - t0
+    faces = load_ply(raw_ply)[1]
+    log(f"[garment] faces at {GARMENT_MESH_RES}³: stage-1 field {stage1_faces}, finetuned "
+        f"field {len(faces)}")
+    if stage1_faces == 0 or len(faces) == 0:
+        raise AssertionError("[garment] the extraction found no surface in a trained field")
+    t0 = time.time()
+    score, score_vhull = garment.score(raw_ply, str(scene_dir), None)
+    out["score_s"] = time.time() - t0
+    out["mesh"] = {"resolution": GARMENT_MESH_RES, "faces": int(len(faces)),
+                   "stage1_field_faces": stage1_faces,
+                   "stages_s": timings, "chamfer": score.chamfer, "fscore_1": score.fscore_1,
+                   "fscore_2": score.fscore_2,
+                   "chamfer_vhull": score_vhull.chamfer if score_vhull else None}
+    log(f"[garment] extract_udf_mesh at {GARMENT_MESH_RES}³: {len(faces)} faces in "
+        f"{out['extract_s']:.1f} s; DF3D score in {out['score_s']:.1f} s: Chamfer "
+        f"{score.chamfer:.5f} (after the visual hull "
+        f"{out['mesh']['chamfer_vhull']}), F@0.001 {score.fscore_1:.4f}, F@0.002 "
+        f"{score.fscore_2:.4f} (the {GARMENT_STEPS} + {GARMENT_FT_STEPS}-step field; no bound)")
+    if not math.isfinite(score.chamfer):
+        raise AssertionError("[garment] the Chamfer distance is not finite")
+    return out
+
+
+def check_bmvs(dev, counters, card) -> dict:
+    """[bmvs]: every JPEG of the committed BlendedMVS-layout scene decoded
+    by ``data/jpeg.read_jpeg`` to the array its manifest hashes (what
+    ``cv2.imread`` decodes), timed; then ``Dataset(dataset_name="bmvs")`` on
+    the card and one graphed window of BMVS_STEPS stage-1 steps at the DTU
+    widths, K1 = K2 = one a step."""
+    from neuraludf_tpu_torch import config as config_mod
+    from neuraludf_tpu_torch.data.jpeg import read_jpeg
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    manifest = json.loads((BMVS_DIR / "manifest.json").read_text())
+    decoded, seconds, wrong = {}, {}, []
+    for rel, ref in manifest["files"].items():
+        t0 = time.time()
+        decoded[rel] = read_jpeg(str(BMVS_DIR / rel))
+        seconds[rel] = time.time() - t0
+        if (list(decoded[rel].shape) != ref["shape"]
+                or hashlib.sha256(decoded[rel].tobytes()).hexdigest() != ref["sha256"]):
+            wrong.append(rel)
+    if wrong:
+        raise AssertionError(f"[bmvs] decoded arrays differ from cv2.imread's: "
+                             f"{source_differences(manifest, decoded, wrong)}")
+    per_image = sorted(t for rel, t in seconds.items() if rel.startswith("blended_images"))
+    per_mask = sorted(t for rel, t in seconds.items() if rel.startswith("masks"))
+    out = {"files": len(seconds), "decode_s_image_median": per_image[len(per_image) // 2],
+           "decode_s_image": per_image, "decode_s_mask_median": per_mask[len(per_mask) // 2]}
+    log(f"[bmvs] {len(seconds)} JPEGs ({list(decoded['blended_images/000.jpg'].shape)}) "
+        f"decoded to their "
+        f"manifest's cv2.imread hashes; read_jpeg on the host: median "
+        f"{out['decode_s_image_median']:.3f} s an image (min {per_image[0]:.3f}, max "
+        f"{per_image[-1]:.3f}), {out['decode_s_mask_median']:.3f} s a mask")
+
+    exp_dir = BUILD / "smoke_exp" / "bmvs"
+    cfg = config_mod.load(str(CONF), case="bmvs_sphere", dataset__data_dir=str(BMVS_DIR),
+                          dataset__dataset_name="bmvs", general__base_exp_dir=str(exp_dir),
+                          train__end_iter=BMVS_STEPS)
+    t0 = time.time()
+    runner = Runner(cfg, seed=0, device=dev)
+    out["load_s"] = time.time() - t0
+    images = runner.dataset.scene["images"]
+    first = torch.from_numpy(decoded["blended_images/000.jpg"] / 256.0).float()
+    if images.device.type != "cuda" or not torch.equal(images[0].cpu(), first):
+        raise AssertionError("[bmvs] the dataset's first image is not the decoded JPEG / 256 "
+                             "on the card")
+    log(f"[bmvs] Dataset(dataset_name='bmvs'): {runner.dataset.n_images} views "
+        f"{tuple(images.shape[1:3])} on {images.device} in {out['load_s']:.1f} s")
+    out["launches"], _ = train_main_path(runner, cfg, exp_dir, counters, ("K1", "K2"))
+    del runner
+    torch.cuda.empty_cache()
+    return out
+
+
+def source_differences(manifest, decoded, wrong) -> dict:
+    """For each wrongly decoded file: the max level difference of the
+    port's array and of cv2's (the manifest's) to the pixels the sphere
+    generator rendered, which the encoder was given."""
+    import numpy as np
+
+    from neuraludf_tpu_torch.data.png import read_png
+    from neuraludf_tpu_torch.data.synthetic import generate_scene
+
+    src = BUILD / "smoke_scene" / "bmvs_source"
+    generate_scene(str(src), **manifest["scene"])
+    out = {}
+    for rel in wrong:
+        sub = "image" if rel.startswith("blended_images") else "mask"
+        source = read_png(str(src / sub / Path(rel).with_suffix(".png").name)).astype(np.int64)
+        port = decoded[rel].astype(np.int64)
+        out[rel] = {"shape": list(port.shape),
+                    "port_max_level_diff_to_source": int(np.abs(port - source).max())
+                    if port.shape == source.shape else None,
+                    "cv2_max_level_diff_to_source":
+                        manifest["files"][rel]["source_max_level_diff"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2016,6 +2274,17 @@ def main() -> int:
     log(f"[dp] ok in {time.time() - t0:.1f} s")
     print(json.dumps({"multi_scan": multi, "dp": dp, "card": card}), flush=True)
 
+    t0 = time.time()
+    log(f"[garment] the DeepFashion3D recipe: {GARMENT_STEPS} stage-1 and {GARMENT_FT_STEPS} "
+        f"finetune steps on a {GARMENT_VIEWS}-view garment, timed, extracted, scored")
+    garment = check_garment(config_mod.load(str(CONF), **dict(
+        common, general__base_exp_dir=str(exp_dir / "garment_dtu"))), ckpt, dev, counters, card)
+    log(f"[garment] ok in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    bmvs = check_bmvs(dev, counters, card)
+    log(f"[bmvs] ok in {time.time() - t0:.1f} s")
+    print(json.dumps({"garment": garment, "bmvs": bmvs, "card": card}), flush=True)
+
     times, nbytes, flops = time_kernels(ucfg, kin, card, launches_a_call)
     k3_times, k3_bytes, k3_flops = time_strip_sample(k3in, card)
     k1_val_times, k1_val_bytes, k1_val_flops = time_kernels(ucfg, val["k1_inputs"], card,
@@ -2031,12 +2300,16 @@ def main() -> int:
                          "validate_image": val["cli_launches"][k],
                          "multi_scan": (multi["stage1"]["launches"][k]
                                         + multi["finetune"]["launches"][k]),
-                         "dp": dp["launches"][k]}
+                         "dp": dp["launches"][k],
+                         "garment": garment["launches"]["stage1"][k],
+                         "garment_ft": garment["launches"]["finetune"][k],
+                         "bmvs": bmvs["launches"][k]}
     hroute = fd.highest_route(fd.layout_for(ucfg))
     high_route = fd.route_for(fd.layout_for(ucfg), "high")
     checked_k12 = [f"{N_POINTS} points ({ucfg.udf_type} head, every tier)",
                    f"{N_OTHER_HEADS} points (square and sdf heads)"] + [
-                   f"{n} points (a partly empty tile)" for n in N_RAGGED]
+                   f"{n} points (a partly empty tile)" for n in N_RAGGED] + [
+                   f"{N_GARMENT_POINTS} points (a garment step, 'default')"]
     kernels = []
     for k, name, line in (("K1", "fused_distance_fwd", 226), ("K2", "fused_distance_bwd", 252)):
         outs = ("udf", "feat", "grad") if k == "K1" else ("xbar", "wbar", "bbar")
@@ -2056,6 +2329,12 @@ def main() -> int:
             "bound_by": "operations" if flops[tier][k] / PEAK_FLOPS[tier] > nbytes[k] / PEAK_BYTES
             else "bytes",
             "library_ms": None,
+            # the garment recipe's step: 512 rays x (64 + 80) samples, at "default"
+            "garment_check": {
+                "points": N_GARMENT_POINTS, "tier": "default",
+                "max_abs_err": max(garment["kernel_errors"][f"{k}/explicit/{o}"][0] for o in outs),
+                "max_rel_err": {ref: max(garment["kernel_errors"][f"{k}/{ref}/{o}"][1]
+                                         for o in outs) for ref in ("explicit", "autograd")}},
             # tier "high" (bf16x3): its own windows of the two training paths
             "high_route": high_route,
             "high_launches_by_path": {p: launches_tier["high"][p][k] for p in ("stage1",

@@ -2,7 +2,8 @@
 (counterpart of ``neuraludf_tpu/data/dataset.py``).
 
 ``Dataset`` reads a scene directory (``cameras.npz``, ``image/*.png``,
-``mask/*.png``) into a ``scene`` dict of tensors on one device: images
+``mask/*.png``; for ``dataset_name = "bmvs"`` BlendedMVS's
+``blended_images/*.jpg`` and ``masks/*.jpg``) into a ``scene`` dict of tensors on one device: images
 [V,H,W,3] (BGR, /256 like the reference), masks, intrinsics (and inverses)
 c2w poses, and each view's nearest neighbours (``ref_src_pairs``).
 ``sample_random_rays`` draws a training batch from one view; its pixel draws
@@ -33,6 +34,7 @@ from ..ops.interp import grid_sample_2d
 from ..render.projector import build_patch_offset
 from .cameras import decompose_projection
 from .image import resize
+from .jpeg import read_jpeg
 from .png import read_png
 
 Scene = Dict[str, torch.Tensor]
@@ -185,21 +187,24 @@ class Dataset:
         self.device = torch.device(device)
         self.data_dir = conf.data_dir
         self.dataset_name = conf.dataset_name
-        if self.dataset_name == "bmvs":
-            raise NotImplementedError("the BlendedMVS JPEG layout needs a JPEG decoder, "
-                                      "not ported yet (ROADMAP §1)")
         self.downsample_factor = conf.downsample_factor
 
         camera_dict = np.load(os.path.join(self.data_dir, conf.render_cameras_name))
-        self.images_lis = sorted(glob(os.path.join(self.data_dir, "image/*.png")))
-        self.masks_lis = sorted(glob(os.path.join(self.data_dir, "mask/*.png")))
+        if self.dataset_name == "bmvs":  # BlendedMVS: baseline JPEGs
+            self.images_lis = sorted(glob(os.path.join(self.data_dir, "blended_images/*.jpg")))
+            self.masks_lis = sorted(glob(os.path.join(self.data_dir, "masks/*.jpg")))
+            read = read_jpeg
+        else:  # dtu / deepfashion3d / general: the PNG layout
+            self.images_lis = sorted(glob(os.path.join(self.data_dir, "image/*.png")))
+            self.masks_lis = sorted(glob(os.path.join(self.data_dir, "mask/*.png")))
+            read = read_png
         self.n_images = len(self.images_lis)
         if self.n_images == 0:
             raise FileNotFoundError(f"no images found under {self.data_dir}")
 
         # BGR, /256: the reference convention
-        self.images_np = np.stack([read_png(p) for p in self.images_lis]) / 256.0
-        self.masks_np = np.stack([read_png(p) for p in self.masks_lis]) / 256.0
+        self.images_np = np.stack([read(p) for p in self.images_lis]) / 256.0
+        self.masks_np = np.stack([read(p) for p in self.masks_lis]) / 256.0
 
         self.world_mats_np = [camera_dict[f"world_mat_{i}"].astype(np.float32)
                               for i in range(self.n_images)]

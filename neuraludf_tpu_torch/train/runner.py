@@ -80,6 +80,13 @@ def default_device(gpu: int = 0) -> torch.device:
     return torch.device(f"cuda:{gpu}")
 
 
+def resolve_device(name: str) -> torch.device:
+    """A device named on a command line ("cuda", "cuda:<i>" or "cpu"); a
+    CUDA one must exist (``default_device``)."""
+    dev = torch.device(name)
+    return default_device(dev.index or 0) if dev.type == "cuda" else dev
+
+
 class Runner:
     def __init__(self, cfg: Config, mode: str = "train", *, is_continue: bool = False,
                  is_finetune: bool = False, reg_weights_schedule: bool = False,

@@ -134,6 +134,39 @@ def test_eval_dtu_entry_matches_script(tmp_path, capsys, monkeypatch):
     assert outs["port"][0].startswith("over_all: ")
 
 
+@pytest.mark.parametrize("flags", [[], ["--downsample_density", "0.05", "--max_dist", "0.5",
+                                         "--scan", "3"]], ids=["defaults", "flags"])
+def test_eval_deepfashion_entry_matches_script(tmp_path, capsys, monkeypatch, flags):
+    """``python -m neuraludf_tpu_torch.eval.eval_deepfashion`` prints the
+    lines and writes the ``eval_result.txt`` of ``scripts/eval_deepfashion.py``
+    (and its error-coloured point clouds), at the DF3D defaults and with
+    every flag given."""
+    from neuraludf_tpu_torch.eval import eval_deepfashion
+
+    verts, faces = sphere_mesh(24, 0.3)
+    gt = gt_surface_points("sphere", n=5_000).astype(np.float32) * 0.61
+    outs = {}
+    for who in ("scripts", "port"):
+        d = tmp_path / who
+        d.mkdir()
+        export_ply(str(d / "mesh.ply"), verts, faces)
+        export_ply(str(d / "gt.ply"), gt, np.zeros((0, 3), np.int32))
+        argv = ["--data", str(d / "mesh.ply"), "--gt", str(d / "gt.ply"),
+                "--vis_out_dir", str(d / "vis"), "--log", str(d / "log.txt")] + flags
+        if who == "scripts":
+            script = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                                  "eval_deepfashion.py")
+            monkeypatch.setattr("sys.argv", ["eval_deepfashion.py"] + argv)
+            runpy.run_path(script, run_name="__main__")
+        else:
+            eval_deepfashion.main(argv)
+        outs[who] = (capsys.readouterr().out, (d / "log.txt").read_text(),
+                     sorted((p.name, p.read_bytes()) for p in (d / "vis").iterdir()))
+    assert outs["port"] == outs["scripts"]
+    assert outs["port"][0].startswith("over_all: ") and "fscore_2mm" in outs["port"][0]
+    assert len(outs["port"][2]) == 2
+
+
 def test_clean_dtu_mesh_entry_matches_script(tmp_path, scene_dir, capsys, monkeypatch):
     """``python -m neuraludf_tpu_torch.eval.clean_dtu_mesh`` writes the
     meshes of ``scripts/clean_dtu_mesh.py``, byte for byte."""
