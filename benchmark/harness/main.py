@@ -1,0 +1,280 @@
+"""The benchmark's command:
+
+    python benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+runs one cell once on one card and prints, as the last line of its
+standard output, one JSON object: ``correct``, ``attempted`` (the steps
+of the measured window), ``failed`` (those of them that failed),
+``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
+per-layer ones), ``device``, with ``--trace 1`` a ``breakdown``, and last
+``checks``, each number compared beside its limit, which also end standard
+error. Without a CUDA device, or with fewer than the cell asks for, it
+exits with 2 and prints no result; with JAX or the JAX package in
+``sys.modules`` once the window has closed, it exits with 3 and names them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from . import cells, check, counts, session, trace as trace_mod
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "neuraludf_tpu")
+FD_REPS = 50  # warm launches a timing of the fused distance op averages
+
+
+def forbidden_modules(names) -> List[str]:
+    """The modules whose top-level name (before the first dot) is, whole,
+    one of FORBIDDEN."""
+    return sorted(n for n in names if n.split(".", 1)[0] in FORBIDDEN)
+
+
+def process_start() -> float:
+    """The wall-clock time this process started, from /proc."""
+    with open("/proc/self/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    ticks = int(fields[19])  # starttime, the 22nd field, in clock ticks after boot
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def power_limit() -> Optional[str]:
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else None
+
+
+class Context:
+    """What the metric readers read: the measured window, the trace, the
+    cell's configuration; ``fd_op_ms`` times the fused distance op on its
+    own once, at first use."""
+
+    def __init__(self, cell, cfg, runner, window: Dict[str, float], setup_s: float,
+                 peak_bytes: int, summary: Optional[trace_mod.TraceSummary],
+                 profiled_steps: int, seed: int):
+        self.cell, self.cfg, self.runner = cell, cfg, runner
+        self.window, self.setup_s, self.peak_bytes = window, setup_s, peak_bytes
+        self.trace, self.profiled_steps, self.seed = summary, profiled_steps, seed
+        self._fd = None
+
+    @property
+    def step_s(self) -> float:
+        """Seconds a step over the whole measured (unprofiled) window."""
+        return self.window["seconds"] / self.window["steps"]
+
+    def fd_op_ms(self) -> Dict[str, float]:
+        """Milliseconds of one call of the port's op entry
+        ``distance_value_feat_grad_fused`` (forward, K1) and of its autograd
+        backward (K2), at the cell's rows, with the runner's parameters and
+        tier, by CUDA events around a graph of FD_REPS warm calls."""
+        if self._fd is None:
+            from neuraludf_tpu_torch.ops import fused_distance as fd
+
+            u = self.cfg.model.udf_network
+            rows = counts.fd_rows(self.cfg)
+            dev = self.runner.device
+            gen = torch.Generator(device=dev).manual_seed(self.seed + 7)
+            x = (torch.rand((rows, 3), generator=gen, device=dev) * 2.0 - 1.0) * 0.9
+            params = {k: {n: t.detach().clone().requires_grad_(True) for n, t in v.items()}
+                      for k, v in self.runner.params["udf"].items()}
+            leaves = [t for v in params.values() for t in v.values()]
+            cot = [torch.randn((rows, 1), generator=gen, device=dev),
+                   torch.randn((rows, u.d_out - 1), generator=gen, device=dev),
+                   torch.randn((rows, 3), generator=gen, device=dev)]
+
+            def fwd():
+                with torch.no_grad():
+                    fd.distance_value_feat_grad_fused(params, x, u)
+
+            side = torch.cuda.Stream(dev)  # the graphs' stream, and the forward's: its
+            side.wait_stream(torch.cuda.current_stream(dev))  # backward runs there too
+            with torch.cuda.stream(side):
+                out = fd.distance_value_feat_grad_fused(params, x, u)
+
+            def bwd():
+                torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+            self._fd = {"fwd": _event_ms(fwd, side), "bwd": _event_ms(bwd, side)}
+            del out
+        return self._fd
+
+
+def _event_ms(fn, side, reps: int = FD_REPS) -> float:
+    """Milliseconds a call of ``fn`` as the window runs it, inside a CUDA
+    graph, with no host gap between launches: CUDA events around the replay
+    of a graph of ``reps`` warm calls, captured on the stream ``side``."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
+            t_start: float, cache=None) -> Dict[str, Any]:
+    """The run (``session``'s module docstring) and its result object."""
+    with tempfile.TemporaryDirectory(prefix="udfbench-") as exp_dir:
+        setup = session.build(cell, seed, device, exp_dir,
+                              cache=session.scene.CACHE if cache is None else cache)
+        runner = setup.runner
+        on_card = device.type == "cuda"
+        session.train_windows(runner, 1)  # warms Runner.train's host loop
+        _sync(device)
+        setup_s = time.time() - t_start - setup.reference_s  # the start's reference steps
+
+        before = session.launch_counts()
+        first_iter = runner.iter_step + 1
+        t0 = time.time()
+        ends = []
+        while True:
+            session.train_windows(runner, 1)
+            ends.append(time.time() - t0)
+            if ends[-1] >= seconds:
+                break
+        _sync(device)
+        elapsed = time.time() - t0
+        n = len(ends)
+        print(f"set-up {setup_s:.3f} s; the start's reference steps {setup.reference_s:.3f} s",
+              file=sys.stderr)
+        print("window ends (s): " + " ".join(f"{e:.3f}" for e in ends), file=sys.stderr)
+        after = session.launch_counts()
+        steps = n * session.WINDOW
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        launched = {k: after[k] - before[k] for k in after}
+        rows = session.window_rows(runner, first_iter, runner.iter_step)
+        why = session.failed_steps(rows, launched, setup.first["blending"], on_card)
+        failed = steps if why else 0
+        window = {"steps": steps, "seconds": elapsed, "rays": steps * setup.cfg.train.batch_size}
+
+        summary, profiled, traced_s = None, 0, None
+        if trace:
+            summary, profiled, traced_s = profile(runner)
+        ctx = Context(cell, setup.cfg, runner, window, setup_s, peak, summary, profiled, seed)
+        wanted = cell.per_layer if trace else cell.end_to_end
+        metrics = {}
+        for m in wanted:
+            value = cells.load_reader(m.name, cell.here).read(ctx)
+            if value is not None:
+                metrics[m.name] = {"value": value, "unit": m.unit}
+        del ctx
+
+        first, scene_dir = setup.first, setup.scene_dir
+        port_side = session.program_side(first)
+        del setup, runner
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        session.tf32_off()
+        ref = session.reference_side(cell, first, scene_dir, device, exp_dir)
+    numbers = check.compare(port_side, ref)
+    limits = cell.workload["limits"]
+    correct = check.judge(numbers, limits) and not why
+    result = {"correct": bool(correct), "attempted": steps, "failed": failed,
+              "metrics": metrics, "device": device_info(device, peak, summary, traced_s)}
+    if trace and summary is not None and summary.n_device_ops:
+        result["breakdown"] = {"device_ops": [[n_, s] for n_, s in summary.top_ops],
+                               "idle_gaps": [[n_, s] for n_, s in summary.idle_gaps]}
+    result["readings"] = {k: v for k, v in numbers.items() if k not in limits}
+    result["checks"] = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
+    if why:
+        result["checks"]["failed_steps"] = {"value": failed, "limit": 0, "why": why}
+    return result
+
+
+def profile(runner):
+    """PROFILE_WINDOWS windows of ``Runner.train`` under torch.profiler;
+    returns (summary, steps profiled, seconds of the traced window)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        session.train_windows(runner, session.PROFILE_WINDOWS)
+        torch.cuda.synchronize()
+        traced_s = time.time() - t0
+    summary = trace_mod.summarize(prof.events())
+    return summary, session.PROFILE_WINDOWS * session.WINDOW, traced_s
+
+
+def device_info(device, peak: int, summary, traced_s) -> Dict[str, Any]:
+    if device.type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": peak}
+    out = {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": 1,
+           "memory_peak_bytes": int(peak), "power_limit": power_limit()}
+    if summary is not None:
+        out["busy_s"] = summary.busy_us / 1e6
+        out["window_s"] = traced_s
+    return out
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def parse(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    return p.parse_args(argv)
+
+
+def main(argv=None, t_start: Optional[float] = None) -> int:
+    t_start = process_start() if t_start is None else t_start
+    args = parse(argv)
+    bench = cells.load_benchmark()
+    cell = cells.load_cell(args.workload, bench)
+    chips = next(w["chips"] for w in bench["workloads"] if w["name"] == args.workload)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"the cell needs {chips} CUDA device(s); "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",
+              file=sys.stderr)
+        return 2
+    result = measure(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda:0"),
+                     t_start)
+    return emit(result)
+
+
+def emit(result: Dict[str, Any]) -> int:
+    """Prints the checks to standard error and the result line last, unless
+    JAX or the JAX package is loaded (then exits 3, with no result)."""
+    found = forbidden_modules(list(sys.modules))
+    if found:
+        print(f"JAX or the JAX package was loaded: {', '.join(found)}", file=sys.stderr)
+        return 3
+    for name, v in result.get("readings", {}).items():
+        print(f"{name} {v!r} (not compared)", file=sys.stderr)
+    for name, c in result["checks"].items():
+        print(f"{name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
+    return 0

@@ -1,0 +1,453 @@
+"""One run of one cell: set-up, the measured window, the trace, the check.
+
+Set-up loads the frozen configuration through the port's ``config.load``,
+writes the scene once (``scene.ensure_scene``), builds the port's
+``Runner`` and hands it the start the benchmark made from the seed: in a
+``stage1`` cell the seeded weights (``weights``) and a zero Adam state; in
+a ``finetune`` cell the state after ``setup_steps`` stage-1 iterations of
+the plain reference from those weights (``reference_start``: parameters,
+Adam state and the beta/variance trainability, on draws from the seed, in
+``Runner.train``'s view order), which is what a finetune loads from its
+stage-1 checkpoint. Those reference steps are the benchmark making its
+input: they run before the port's set-up, in f32 with TF32 off, and count
+neither in ``setup_s`` nor in the peak memory. The first window then
+runs through the runner's own ``TrainWindow`` (its two eager warm-up steps,
+the capture of its graph, and replays), fed with draws made from the seed,
+and keeps what the reference follows (``check``). One more window through
+``Runner.train`` warms the runner's host loop; set-up ends there.
+
+The measured window runs whole windows of ``Runner.train`` (``end_iter``
+advanced one window at a time) until ``seconds`` have passed, and is ended
+by a synchronize. Every step of it must have launched K1 and K2 once (and
+K3 once in a blending cell, with nonzero pixel and patch terms), and every
+loss must be finite; a step that did not is a failed one.
+
+With ``trace`` two more windows run under ``torch.profiler``, and the
+per-layer readers read the trace, the measured window and, where they ask
+for it, the fused distance op timed on its own (``Context.fd_op_ms``).
+
+Once the window has closed and the peak memory is read, the port's state
+is freed and the plain reference follows the first steps.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import gc
+import json
+import math
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+import reference.config as ref_config
+import reference.hocon as ref_hocon
+from reference.mlp import rounded
+from reference.optim import init_adam_state as ref_init_adam
+from reference.renderer import UDFRenderer as RefRenderer
+from reference.schedules import compute_step_schedules, schedule_rows
+from reference.step import build_step_body as ref_build_step_body
+from reference.dataset import load_scene
+
+from . import cells, check, scene
+from .weights import init_weights
+
+WINDOW = 50  # iterations a runner window holds (the runner's own choice, checked)
+PROFILE_WINDOWS = 2  # runner windows under the profiler in a traced run
+
+
+# ----------------------------------------------------------------------------
+# configuration and inputs
+# ----------------------------------------------------------------------------
+
+def scene_spec(conf_path: Path) -> Dict[str, Any]:
+    raw = ref_hocon.parse_file(str(conf_path))
+    spec = dict(raw["scene"])
+    for key in ("kind", "views", "height", "width", "focal"):
+        if key not in spec:
+            raise KeyError(f"{conf_path}: scene.{key} missing")
+    return spec
+
+
+def overrides(exp_dir: str, data_dir: str) -> Dict[str, Any]:
+    """What a run sets beside the frozen file: where it writes and reads."""
+    return {"general__base_exp_dir": exp_dir, "general__recording": (),
+            "dataset__data_dir": data_dir}
+
+
+def image_indices(n_img: int, start: int, k: int) -> np.ndarray:
+    """The views of iterations start .. start + k - 1 in ``Runner.train``'s
+    order: permutations of RandomState(0), one per pass over the views."""
+    rng = np.random.RandomState(0)
+    perm = rng.permutation(n_img)
+    for _ in range(start // n_img):
+        perm = rng.permutation(n_img)
+    out = np.empty((k,), np.int64)
+    for j in range(k):
+        step = start + j
+        out[j] = perm[step % n_img]
+        if (step + 1) % n_img == 0:
+            perm = rng.permutation(n_img)
+    return out
+
+
+def make_draws(cfg, n_views_hw, k: int, seed: int, device) -> List[Dict[str, torch.Tensor]]:
+    """k iterations' draws, in the shapes and types the port's window draws
+    them: pixels px, py [B] int64, the z jitter t_rand [B, 1] and the
+    outside jitter t_r [n_outside]."""
+    _, h, w = n_views_hw
+    b, r = cfg.train.batch_size, cfg.model.udf_renderer
+    gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+    px = torch.randint(0, w, (k, b), generator=gen, device=device)
+    py = torch.randint(0, h, (k, b), generator=gen, device=device)
+    out = [{"px": px[j], "py": py[j]} for j in range(k)]
+    if r.perturb > 0:
+        t_rand = torch.rand((k, b, 1), generator=gen, device=device) - 0.5
+        t_r = (torch.rand((k, r.n_outside), generator=gen, device=device)
+               if r.n_outside > 0 else None)
+        for j in range(k):
+            out[j]["t_rand"] = t_rand[j]
+            if t_r is not None:
+                out[j]["t_r"] = t_r[j]
+    return out
+
+
+class Snapshots:
+    """The draws of a window, handed to ``TrainWindow`` as its ``noise``.
+    The window asks for step i's draws just before it runs step i, so that
+    is where the state after the steps before it is copied: the first
+    moments after step 1 and the parameters after step ``check.FOLLOW``."""
+
+    def __init__(self, draws, params, opt_state):
+        self.draws, self.params, self.opt_state = draws, params, opt_state
+        self.m1 = self.pN = None
+
+    def __len__(self):
+        return len(self.draws)
+
+    def __getitem__(self, i):
+        if i == 1:
+            self.m1 = check.moments(self.opt_state)
+        if i == check.FOLLOW:
+            self.pN = check.snapshot_params(self.params)
+        return self.draws[i]
+
+
+# ----------------------------------------------------------------------------
+# the port's side
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Setup:
+    runner: Any
+    cfg: Any
+    first: Dict[str, Any]  # what the reference follows
+    scene_dir: Path
+    reference_s: float = 0.0  # seconds of the reference's steps that made the start
+
+
+def _load_cfg(conf: Path, exp_dir: str, data_dir: str, extra=None):
+    from neuraludf_tpu_torch import config as port_config
+
+    return port_config.load(str(conf), **overrides(exp_dir, data_dir), **(extra or {}))
+
+
+def _copy_tree(mine, theirs, what: str) -> None:
+    """Copies every leaf of ``theirs`` into the same leaf of ``mine`` in place."""
+    mine, theirs = dict(check.flat_leaves(mine)), dict(check.flat_leaves(theirs))
+    if mine.keys() != theirs.keys():
+        raise ValueError(f"{what} trees differ: {sorted(mine.keys() ^ theirs.keys())}")
+    for path, t in mine.items():
+        if t.shape != theirs[path].shape:
+            raise ValueError(f"{path}: {tuple(t.shape)} != {tuple(theirs[path].shape)}")
+        t.copy_(theirs[path])
+
+
+def _seed_state(runner, start: Dict[str, Any]) -> None:
+    """Hands the runner the benchmark's start: its parameters and Adam state
+    copied in place (a zero state where the start has none), and its
+    trainability."""
+    with torch.no_grad():
+        _copy_tree(runner.params, start["params"], "parameter")
+        if start["opt"] is None:
+            for _, t in check.flat_leaves(runner.opt_state):
+                t.zero_()
+        else:
+            _copy_tree(runner.opt_state, start["opt"], "optimizer state")
+    runner.beta_trainable = start["beta_trainable"]
+    runner.variance_trainable = start["variance_trainable"]
+
+
+def first_window(runner, seed: int, start: Dict[str, Any]) -> Dict[str, Any]:
+    """The runner's first window from the benchmark's ``start``, through its
+    own ``TrainWindow`` on draws made from the seed; returns what the
+    reference follows."""
+    from neuraludf_tpu_torch.train import schedules as port_sched
+
+    k = runner._window_size()
+    if k != WINDOW:
+        raise ValueError(f"the runner's window is {k} iterations, the benchmark's {WINDOW}")
+    dev = runner.device
+    start_iter = runner.iter_step
+    scheds = [runner._schedules_at(start_iter + j) for j in range(k)]
+    blending = port_sched.is_blending(scheds[0])
+    if blending != port_sched.is_blending(scheds[-1]):
+        raise ValueError("blending switches inside the first window")
+    idxs = image_indices(runner.dataset.n_images, start_iter, k)
+    images = runner.dataset.scene["images"]
+    draws = make_draws(runner.cfg, images.shape[:3], k, seed, dev)
+    state0 = {"p0": check.snapshot_params(runner.params), "m0": check.moments(runner.opt_state),
+              "start": start}
+    snaps = Snapshots(draws, runner.params, runner.opt_state)
+    window_fn = runner._get_window_fn(blending, k)
+    rows = torch.from_numpy(port_sched.schedule_rows(scheds)).to(dev)
+    mat = window_fn(runner.params, runner.opt_state, runner.dataset.scene,
+                    torch.from_numpy(idxs).to(dev), runner.generator, rows, noise=snaps)
+    runner.iter_step += k
+    from neuraludf_tpu_torch.train.step import METRIC_KEYS
+
+    rows_n = mat[:check.FOLLOW].cpu().tolist()
+    losses = [row[METRIC_KEYS.index("loss")] for row in rows_n]
+    terms = [dict(zip(METRIC_KEYS, row)) for row in rows_n]
+    return {**state0, "m1": snaps.m1, "pN": snaps.pN, "losses": losses, "terms": terms,
+            "start_iter": start_iter,
+            "idxs": idxs[:check.FOLLOW], "draws": draws[:check.FOLLOW], "blending": blending}
+
+
+def build(cell: cells.Cell, seed: int, device, exp_dir: str, dataset=None,
+          cache: Path = scene.CACHE, extra=None) -> Setup:
+    """Everything up to and including the first window (module docstring).
+    ``extra`` adds configuration overrides (``calibrate.py``'s witness)."""
+    from neuraludf_tpu_torch.data.dataset import Dataset
+    from neuraludf_tpu_torch.train.runner import Runner
+
+    wl = cell.workload
+    spec = scene_spec(cell.conf_path)
+    scene_dir, _ = scene.ensure_scene(spec, cache)
+    cfg = _load_cfg(cell.conf_path, exp_dir, str(scene_dir), extra)
+    weights = init_weights(cfg, seed, device)
+    stage = wl["stage"]
+    reference_s = 0.0
+    if stage == "finetune":
+        t0 = time.time()
+        start = reference_start(cell, weights, int(spec["views"]), scene_dir, device, exp_dir,
+                                seed)
+        _sync(device)
+        reference_s = time.time() - t0
+        del weights
+        _free()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+    elif stage == "stage1":
+        ref_cfg = ref_config.load(str(cell.conf_path), **overrides(exp_dir, str(scene_dir)))
+        start = {"params": weights, "opt": None, **initial_trainability(ref_cfg)}
+    else:
+        raise ValueError(f"{cell.name}: unknown stage {stage!r}")
+    if dataset is None:
+        dataset = Dataset(cfg.dataset, device)
+    runner = Runner(cfg, seed=seed, device=device, dataset=dataset,
+                    is_finetune=stage == "finetune", **runner_flags(wl))
+    _seed_state(runner, start)
+    runner.end_iter = runner.iter_step  # train() runs only what the caller asks for
+    first = first_window(runner, seed, start)
+    return Setup(runner, cfg, first, scene_dir, reference_s)
+
+
+def runner_flags(wl) -> Dict[str, Any]:
+    """The launcher's flags the cell's traffic sets."""
+    return {"reg_weights_schedule": bool(wl.get("reg_weights_schedule", False))}
+
+
+def _free() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_windows(runner, n: int) -> None:
+    """n whole windows through ``Runner.train``."""
+    runner.end_iter = runner.iter_step + n * WINDOW
+    runner.train()
+
+
+def launch_counts() -> Dict[str, int]:
+    from neuraludf_tpu_torch.ops import fused_distance, strip_sample
+
+    return {"K1": fused_distance.fused_forward.launches,
+            "K2": fused_distance.fused_backward.launches,
+            "K3": strip_sample.strip_sample.launches}
+
+
+def window_rows(runner, first_iter: int, last_iter: int) -> List[Dict[str, float]]:
+    """The metric rows ``Runner.train`` logged for iterations first..last."""
+    path = Path(runner.base_exp_dir) / "logs" / "metrics.jsonl"
+    rows = {}
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            if first_iter <= row["iter"] <= last_iter:
+                rows[row["iter"]] = row
+    return [rows.get(i) for i in range(first_iter, last_iter + 1)]
+
+
+def failed_steps(rows, launched: Dict[str, int], blending: bool, on_card: bool) -> List[str]:
+    """Why steps of the window failed: a missing row, a non-finite loss, a
+    blending step with a zero pixel or patch term, a kernel that did not
+    launch once a step (on the card)."""
+    why = []
+    n = len(rows)
+    bad = [i for i, r in enumerate(rows) if r is None or not math.isfinite(r["loss"])]
+    if bad:
+        why.append(f"{len(bad)} steps without a finite loss")
+    if blending:
+        dead = [i for i, r in enumerate(rows) if r is not None
+                and (r["color_pixel_loss"] == 0.0 or r["color_patch_loss"] == 0.0)]
+        if dead:
+            why.append(f"{len(dead)} blending steps with a zero pixel or patch term")
+    if on_card:
+        want = {"K1": n, "K2": n, "K3": n if blending else 0}
+        for k, v in want.items():
+            if launched[k] != v:
+                why.append(f"{k} launched {launched[k]} times in {n} steps")
+    return why
+
+
+# ----------------------------------------------------------------------------
+# the reference's side
+# ----------------------------------------------------------------------------
+
+SETUP_STREAM = 2 ** 32  # added to the seed for the draws of a finetune's start
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """f32 products with TF32 off inside; the flags as they were after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    tf32_off()
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def initial_trainability(cfg) -> Dict[str, bool]:
+    """Beta's and the variance's trainability at a run's start, as the
+    configuration sets them."""
+    return {"beta_trainable": bool(cfg.model.beta_network.requires_grad_beta),
+            "variance_trainable": bool(cfg.model.variance_network.requires_grad
+                                       and not cfg.train.freeze_variance)}
+
+
+def _ref_state(start: Dict[str, Any], device):
+    """The reference's parameters and Adam state, fresh copies of a start."""
+    params = {}
+    for path, t in check.flat_leaves(start["params"]):
+        check.put(params, path, t.detach().clone().to(device).requires_grad_(True))
+    opt = ref_init_adam(params)
+    if start["opt"] is not None:
+        with torch.no_grad():
+            _copy_tree(opt, start["opt"], "optimizer state")
+    return params, opt
+
+
+def _schedule_rows(cfg, start_iter: int, n: int, *, finetune: bool, wl, flags):
+    c = cfg.color_loss
+    return schedule_rows([compute_step_schedules(
+        start_iter + j, cfg.train, c.color_base_weight, c.color_weight, c.color_pixel_weight,
+        c.color_patch_weight, is_finetune=finetune,
+        reg_weights_schedule=bool(wl.get("reg_weights_schedule", False)),
+        same_lr=cfg.train.same_lr, **flags) for j in range(n)])
+
+
+def reference_start(cell: cells.Cell, weights, n_views: int, scene_dir: Path, device,
+                    exp_dir: str, seed: int) -> Dict[str, Any]:
+    """A finetune cell's start, made by the benchmark: the plain reference's
+    ``setup_steps`` stage-1 iterations (the cell's ``setup_conf``) from the
+    seeded weights, in f32 with TF32 off, on draws from the seed (a stream
+    of their own), in ``Runner.train``'s view order. As in the runner, the
+    trainability is fixed for a window of WINDOW steps and updated after it
+    by the runner's rule: beta becomes trainable once the variance is below
+    0.01 and below twice beta. Returns the parameters, the Adam state and
+    the trainability."""
+    wl = cell.workload
+    cfg = ref_config.load(str(cell.here / "configs" / cells.check_name(wl["setup_conf"])),
+                          **overrides(exp_dir, str(scene_dir)))
+    k = int(wl["setup_steps"])
+    idxs = image_indices(n_views, 0, k)
+    flags = initial_trainability(cfg)
+    beta_flag = True
+    with exact_f32():
+        scene_t = load_scene(str(scene_dir), idxs, device)
+        draws = make_draws(cfg, scene_t["images"].shape[:3], k, seed + SETUP_STREAM, device)
+        params, opt = _ref_state({"params": weights, "opt": None}, device)
+        body = ref_build_step_body(cfg, RefRenderer(cfg.model), blending=False)
+        for w0 in range(0, k, WINDOW):
+            n = min(WINDOW, k - w0)
+            rows = torch.as_tensor(_schedule_rows(cfg, w0, n, finetune=False, wl=wl, flags=flags),
+                                   device=device)
+            ms = [body(params, opt, scene_t, int(idxs[w0 + j]), rows[j], noise=draws[w0 + j])
+                  for j in range(n)]
+            for j, m in enumerate(ms):
+                loss, var, beta = float(m["loss"]), float(m["variance"]), float(m["beta"])
+                if not math.isfinite(loss):
+                    raise FloatingPointError(
+                        f"the reference's start: loss {loss} at step {w0 + j}")
+                if var < 2 * beta and var < 0.01 and beta_flag and flags["variance_trainable"]:
+                    flags["beta_trainable"], beta_flag = True, False
+    out = {}
+    for path, t in check.flat_leaves(params):
+        check.put(out, path, t.detach())
+    return {"params": out, "opt": opt, **flags}
+
+
+def reference_side(cell: cells.Cell, setup_first: Dict[str, Any], scene_dir: Path, device,
+                   exp_dir: str, rounding: Optional[tuple] = None) -> Dict[str, object]:
+    """The plain reference's FOLLOW steps from the benchmark's start (the
+    seeded weights, or in a finetune cell ``reference_start``'s state), on
+    the same draws, views and schedules; its readings. With ``rounding`` the
+    reference rounds its products' operands and cotangents to that pair of
+    types (``reference.mlp.rounded``; the control)."""
+    f = setup_first
+    cfg = ref_config.load(str(cell.conf_path), **overrides(exp_dir, str(scene_dir)))
+    scene_t = load_scene(str(scene_dir), f["idxs"], device, sources=8 if f["blending"] else 0)
+    params, opt = _ref_state(f["start"], device)
+    flags = {k: f["start"][k] for k in ("beta_trainable", "variance_trainable")}
+    rows = _schedule_rows(cfg, f["start_iter"], check.FOLLOW,
+                          finetune=cell.workload["stage"] == "finetune", wl=cell.workload,
+                          flags=flags)
+    body = ref_build_step_body(cfg, RefRenderer(cfg.model), blending=f["blending"])
+    p0, m0 = check.snapshot_params(params), check.moments(opt)
+    losses, terms, m1 = [], [], None
+    ctx = rounded(*rounding) if rounding is not None else contextlib.nullcontext()
+    with ctx:
+        for j in range(check.FOLLOW):
+            sched = torch.as_tensor(rows[j], device=device)
+            noise = {k: v.to(device) for k, v in f["draws"][j].items()}
+            m = body(params, opt, scene_t, int(f["idxs"][j]), sched, noise=noise)
+            losses.append(float(m["loss"]))
+            terms.append({k: float(v) for k, v in m.items()})
+            if j == 0:
+                m1 = check.moments(opt)
+    out = check.readings(losses, m0, m1, p0, check.snapshot_params(params))
+    out["terms"] = terms
+    return out
+
+
+def program_side(first: Dict[str, Any]) -> Dict[str, object]:
+    out = check.readings(first["losses"], first["m0"], first["m1"], first["p0"], first["pN"])
+    out["terms"] = first["terms"]
+    return out
+
+
+def tf32_off() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
