@@ -118,16 +118,22 @@ def main(argv=None):
 @contextlib.contextmanager
 def profile_trace(log_dir: str, device):
     """A ``torch.profiler`` trace of the enclosed work (host and, on a CUDA
-    device, the card), written to ``<log_dir>/trace.json`` in the Chrome
-    trace format when the work ends."""
+    device, the card), with the program's spans on, written to
+    ``<log_dir>/trace.json`` in the Chrome trace format when the work ends."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .utils import trace
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
+    trace.enable()  # the program's spans (utils/trace.py) go into the trace
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        trace.disable()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

@@ -67,6 +67,7 @@ from torch.autograd.function import once_differentiable
 from ..config import UDFNetworkConfig
 from ..nets import fields
 from ..nets.mlp import softplus100, weight
+from ..utils.trace import span
 from . import build
 
 TILE = 64  # the kernels' column tile; every padded width is a multiple
@@ -668,19 +669,22 @@ class FusedDistance(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, ubar, fbar, gbar):
-        x, wflat, bflat = ctx.saved_tensors
-        lay, tier = ctx.lay, ctx.tier
-        ubar, fbar, gbar = (t.contiguous() for t in (ubar, fbar, gbar))
-        if x.is_cuda:
-            xbar, wbar, bbar = fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
-        else:
-            xbar, wbar, bbar = explicit_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
-        ws, bs = unpack(wbar, bbar, lay)
+        with span("op.fd_bwd"):
+            x, wflat, bflat = ctx.saved_tensors
+            lay, tier = ctx.lay, ctx.tier
+            ubar, fbar, gbar = (t.contiguous() for t in (ubar, fbar, gbar))
+            if x.is_cuda:
+                xbar, wbar, bbar = fused_backward(x, wflat, bflat, lay, tier, ubar, fbar, gbar)
+            else:
+                xbar, wbar, bbar = explicit_backward(x, wflat, bflat, lay, tier, ubar, fbar,
+                                                     gbar)
+            ws, bs = unpack(wbar, bbar, lay)
         return (xbar, None, None, *ws, *bs)
 
 
 def distance_value_feat_grad_fused(params, x: torch.Tensor, cfg: UDFNetworkConfig):
     """Drop-in fused replacement for fields.distance_value_and_gradient, at
     the tier cfg.fused_precision names."""
-    ws, bs = effective_weights(params, cfg)
-    return FusedDistance.apply(x, layout_for(cfg), precision_tier(cfg), *ws, *bs)
+    with span("op.fd_fwd"):
+        ws, bs = effective_weights(params, cfg)
+        return FusedDistance.apply(x, layout_for(cfg), precision_tier(cfg), *ws, *bs)

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.trace import span
 from . import build
 
 
@@ -103,19 +104,20 @@ class _StripSample:
         if not images.is_cuda:
             return strip_sample_plain(images, gx, gy)
 
-        v, _, h, w = images.shape
-        nw, p = gx.shape[1], gx.shape[2]
-        img = images.detach().permute(0, 2, 3, 1).contiguous()  # [V, H, W, 3]
-        gx, gy = gx.detach().contiguous(), gy.detach().contiguous()
-        dev = images.device
-        colors = torch.empty((v, nw, 3, p), dtype=torch.float32, device=dev)
-        mask = torch.empty((v, nw, p), dtype=torch.bool, device=dev)
-        lib = library()
-        with torch.cuda.device(dev):
-            rc = lib.ss_forward(img.data_ptr(), gx.data_ptr(), gy.data_ptr(), v, h, w, nw, p,
-                                colors.data_ptr(), mask.data_ptr(),
-                                torch.cuda.current_stream(dev).cuda_stream)
-            self.launches += 1
+        with span("op.strip_sample"):
+            v, _, h, w = images.shape
+            nw, p = gx.shape[1], gx.shape[2]
+            img = images.detach().permute(0, 2, 3, 1).contiguous()  # [V, H, W, 3]
+            gx, gy = gx.detach().contiguous(), gy.detach().contiguous()
+            dev = images.device
+            colors = torch.empty((v, nw, 3, p), dtype=torch.float32, device=dev)
+            mask = torch.empty((v, nw, p), dtype=torch.bool, device=dev)
+            lib = library()
+            with torch.cuda.device(dev):
+                rc = lib.ss_forward(img.data_ptr(), gx.data_ptr(), gy.data_ptr(), v, h, w, nw, p,
+                                    colors.data_ptr(), mask.data_ptr(),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+                self.launches += 1
         if rc != 0:
             raise RuntimeError(f"strip_sample failed: CUDA error {rc}")
         return colors, mask

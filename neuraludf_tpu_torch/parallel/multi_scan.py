@@ -30,7 +30,6 @@ import json
 import logging
 import math
 import os
-import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -40,7 +39,7 @@ from ..config import Config
 from ..data.dataset import Dataset
 from ..render.renderer import UDFRenderer
 from ..train import schedules as sched_mod
-from ..train.runner import Runner, default_device
+from ..train.runner import Runner, default_device, iter_rate, rate_text
 from ..train.schedules import SCHEDULE_KEYS
 from ..train.step import (METRIC_KEYS, Noise, Params, TrainWindow, build_step_body,
                           draw_noise)
@@ -239,6 +238,7 @@ class MultiScanRunner:
         self._perms = [rng.permutation(r.dataset.n_images)
                        for rng, r in zip(self._perm_rngs, self.scans)]
         self._window_fns: Dict[tuple, MultiScanWindow] = {}
+        self._rate_mark = None  # (iteration, time) of train's previous report
         if is_continue:
             self._resume()
 
@@ -300,7 +300,7 @@ class MultiScanRunner:
         called every ``report_freq`` iterations with a dict of [S] arrays."""
         tcfg = self.cfg.train
         window = self.scans[0]._window_size()
-        t_start = time.time()
+        self._rate_mark = None  # a train call's first report gives no rate
         logs = []
         for r in self.scans:
             os.makedirs(os.path.join(r.base_exp_dir, "logs"), exist_ok=True)
@@ -315,7 +315,7 @@ class MultiScanRunner:
                 watchdog.beat()
                 for j in range(k):
                     it = self.iter_step - k + 1 + j
-                    self._post_step_host(it, mat[j], logs, t_start, report_hook)
+                    self._post_step_host(it, mat[j], logs, report_hook)
                 for f in logs:
                     f.flush()
                 for r in self.scans:
@@ -360,11 +360,11 @@ class MultiScanRunner:
             self.iter_step += 1
         return torch.stack(out)
 
-    def _post_step_host(self, it: int, mat: np.ndarray, logs, t_start: float, report_hook):
+    def _post_step_host(self, it: int, mat: np.ndarray, logs, report_hook):
         """Iteration it's metric rows [S, M]: each scan's log line and
         trainability state machine; a non-finite loss saves every scan's
         state as ``crash_*`` (the window's updates are applied already) and
-        raises."""
+        raises. The reported rate is ``runner.iter_rate``'s."""
         for i, r in enumerate(self.scans):
             m = dict(zip(METRIC_KEYS, mat[i].tolist()))
             logs[i].write(json.dumps({"iter": it, **m}) + "\n")
@@ -377,8 +377,8 @@ class MultiScanRunner:
             r.update_trainability(it, m)
         if it % self.cfg.train.report_freq == 0:
             loss = mat[:, METRIC_KEYS.index("loss")]
-            log.info("iter %d per-scan loss %s (%.1f it/s)", it, np.round(loss, 4),
-                     it / max(time.time() - t_start, 1e-9))
+            ips, self._rate_mark = iter_rate(self._rate_mark, it)
+            log.info("iter %d per-scan loss %s (%s)", it, np.round(loss, 4), rate_text(ips))
             if report_hook:
                 report_hook(it, {name: mat[:, n] for n, name in enumerate(METRIC_KEYS)})
 

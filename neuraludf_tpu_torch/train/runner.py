@@ -48,6 +48,7 @@ from ..render.projector import camera_inverse
 from ..render.renderer import RenderOptions, UDFRenderer
 from ..utils.hdf5 import write_dataset
 from ..utils.plot import plot_curves
+from ..utils.trace import span
 from ..utils.watchdog import StallWatchdog
 from . import schedules as sched_mod
 from .colormap import colorize_depth
@@ -70,6 +71,20 @@ def init_params(generator: torch.Generator, cfg: Config, device="cpu") -> Dict[s
         "beta": fields.init_beta(cfg.model.beta_network),
     }
     return convert.to_torch(convert.to_numpy(params), device, requires_grad=True)
+
+
+def iter_rate(mark: Optional[tuple], it: int) -> tuple:
+    """(iterations a second since ``mark``, the new mark) at a report of
+    iteration ``it``: ``mark`` is the (iteration, ``time.time()``) of the
+    previous report, or None at a run's first, which gives no rate (the
+    seconds before it hold the warm-up and the graph's capture)."""
+    now = time.time()
+    rate = None if mark is None else (it - mark[0]) / max(now - mark[1], 1e-9)
+    return rate, (it, now)
+
+
+def rate_text(rate: Optional[float]) -> str:
+    return "first report" if rate is None else f"{rate:.1f} it/s"
 
 
 def default_device(gpu: int = 0) -> torch.device:
@@ -131,6 +146,7 @@ class Runner:
         self._step_bodies = {}
         self._window_fns = {}  # (blending, window, unroll) -> step.TrainWindow
         self._mesh_caches = {}  # resolution -> incremental extraction cache
+        self._rate_mark = None  # (iteration, time) of train's previous report
 
         if is_continue:
             latest = self._latest_checkpoint()
@@ -283,22 +299,29 @@ class Runner:
         window = self._window_size()
         log_dir = os.path.join(self.base_exp_dir, "logs")
         os.makedirs(log_dir, exist_ok=True)
-        t_start = time.time()
+        self._rate_mark = None  # a train call's first report gives no rate
         watchdog = StallWatchdog(self.cfg.train.stall_warn_s,
                                  tag_fn=lambda: f"iter {self.iter_step}").start()
         try:
             with open(os.path.join(log_dir, "metrics.jsonl"), "a") as metrics_log:
                 while self.iter_step < self.end_iter:
-                    k = min(window, self.end_iter - self.iter_step)
-                    mat = self._train_window(k, window, next_img_indices(k)).cpu().numpy()
-                    watchdog.beat()
-                    for j in range(k):
-                        it = self.iter_step - k + 1 + j
-                        m = dict(zip(METRIC_KEYS, mat[j].tolist()))
-                        metrics_log.write(json.dumps({"iter": it, **m}) + "\n")
-                        self._post_step_host(it, m, t_start, report_hook)
-                    metrics_log.flush()
-                    self._periodic_actions(k)
+                    with span("runner.window"):
+                        k = min(window, self.end_iter - self.iter_step)
+                        with span("runner.schedules"):
+                            img_idxs = next_img_indices(k)
+                        mat = self._train_window(k, window, img_idxs)
+                        with span("runner.fetch"):
+                            mat = mat.cpu().numpy()
+                        watchdog.beat()
+                        with span("runner.log"):
+                            for j in range(k):
+                                it = self.iter_step - k + 1 + j
+                                m = dict(zip(METRIC_KEYS, mat[j].tolist()))
+                                metrics_log.write(json.dumps({"iter": it, **m}) + "\n")
+                                self._post_step_host(it, m, report_hook)
+                            metrics_log.flush()
+                        with span("runner.periodic"):
+                            self._periodic_actions(k)
         finally:
             watchdog.stop()
 
@@ -308,10 +331,11 @@ class Runner:
         a boundary window (blending switches on within it), a shorter last
         window, and a blending window without ``blend_scan_window`` step one
         iteration at a time, as the JAX runner's do."""
-        scheds = [self._schedules_at(self.iter_step + j) for j in range(k)]
+        with span("runner.schedules"):
+            scheds = [self._schedules_at(self.iter_step + j) for j in range(k)]
+            rows = torch.from_numpy(sched_mod.schedule_rows(scheds)).to(self.device)
+            idxs = torch.from_numpy(img_idxs).to(self.device)
         first, last = sched_mod.is_blending(scheds[0]), sched_mod.is_blending(scheds[-1])
-        rows = torch.from_numpy(sched_mod.schedule_rows(scheds)).to(self.device)
-        idxs = torch.from_numpy(img_idxs).to(self.device)
         scene = self.dataset.scene
         if first == last and k == window and (self.cfg.train.blend_scan_window or not first):
             window_fn = self._get_window_fn(first, k)
@@ -357,19 +381,21 @@ class Runner:
             except Exception:  # a validation mesh must not end the training
                 log.exception("mesh extraction failed at iter %d", self.iter_step)
 
-    def _post_step_host(self, it: int, m: Dict[str, float], t_start: float, report_hook=None):
-        """Host-side bookkeeping of one iteration, at metric-flush time."""
+    def _post_step_host(self, it: int, m: Dict[str, float], report_hook=None):
+        """Host-side bookkeeping of one iteration, at metric-flush time. The
+        reported rate counts the iterations since the previous report of
+        this ``train`` call over the seconds since then (``iter_rate``)."""
         tcfg = self.cfg.train
         if not np.isfinite(m["loss"]):
             path = self.save_checkpoint()
             raise FloatingPointError(f"non-finite loss at iter {it}: {m}; state saved to {path}")
         self.update_trainability(it, m)
         if it % tcfg.report_freq == 0:
-            ips = it / max(time.time() - t_start, 1e-9)
+            ips, self._rate_mark = iter_rate(self._rate_mark, it)
             log.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f var=%.5f beta=%.5f "
-                     "ws=%.3f udf_min=%.5f (%.1f it/s)",
+                     "ws=%.3f udf_min=%.5f (%s)",
                      it, m["loss"], m["color_total_loss"], m["gradient_error"], m["psnr"],
-                     m["variance"], m["beta"], m["weight_sum"], m["udf_min"], ips)
+                     m["variance"], m["beta"], m["weight_sum"], m["udf_min"], rate_text(ips))
             if report_hook:
                 report_hook(it, m)
 

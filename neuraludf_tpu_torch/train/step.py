@@ -36,6 +36,7 @@ from ..data.dataset import draw_pixels, near_far_from_sphere, ref_src_info, samp
 from ..losses.color import ColorLossWeights, bce_mask_loss, color_loss, psnr
 from ..render.projector import camera_inverse
 from ..render.renderer import Gather, RenderOptions, UDFRenderer, no_gather, uniform_draw
+from ..utils.trace import count, span
 from .optim import adam_step, flat_adam_step, leaves, make_lr_fn, make_trainable_fn
 from .schedules import SCHEDULE_KEYS, unpack_row
 
@@ -105,91 +106,96 @@ def build_loss_fn(cfg: Config, renderer: UDFRenderer, *, blending: bool = False,
         noise = noise or {}
         if isinstance(sched, torch.Tensor):
             sched = unpack_row(sched)
-        sample = sample_random_rays(scene, img_idx, tcfg.batch_size, generator=generator,
-                                    px=noise.get("px"), py=noise.get("py"),
-                                    u_mask=noise.get("u_mask"),
-                                    crop_patch=opts.patch_blending, h_patch_size=h_patch)
-        data = sample["rays"]
-        true_rgb, mask = data[:, 6:9], data[:, 9:10]
-        mask = (mask > 0.5).to(torch.float32)
-        rows = slice(None) if shard is None else shard.rows(tcfg.batch_size)
-        rays_o, rays_d = data[rows, :3], data[rows, 3:6]
-        near, far = near_far_from_sphere(rays_o, rays_d)
-        render_noise = {key: noise[key][rows] if key == "t_rand" else noise[key]
-                        for key in ("t_rand", "t_r") if key in noise}
+        with span("step.sample"):
+            sample = sample_random_rays(scene, img_idx, tcfg.batch_size, generator=generator,
+                                        px=noise.get("px"), py=noise.get("py"),
+                                        u_mask=noise.get("u_mask"),
+                                        crop_patch=opts.patch_blending, h_patch_size=h_patch)
+            data = sample["rays"]
+            true_rgb, mask = data[:, 6:9], data[:, 9:10]
+            mask = (mask > 0.5).to(torch.float32)
+            rows = slice(None) if shard is None else shard.rows(tcfg.batch_size)
+            rays_o, rays_d = data[rows, :3], data[rows, 3:6]
+            near, far = near_far_from_sphere(rays_o, rays_d)
+            render_noise = {key: noise[key][rows] if key == "t_rand" else noise[key]
+                            for key in ("t_rand", "t_r") if key in noise}
 
-        blending_inputs = None
-        if opts.pixel_blending or opts.patch_blending:
-            ref_c2w, src_c2ws, src_intr, src_images = ref_src_info(scene, img_idx)
-            blending_inputs = {
-                "color_maps": src_images,
-                "w2cs": camera_inverse(src_c2ws),
-                "intrinsics": src_intr,
-                "query_c2w": ref_c2w,
-                "rays_uv": sample["rays_ndc_uv"][rows] if opts.patch_blending else None,
-                "img_index": None,
-            }
+            blending_inputs = None
+            if opts.pixel_blending or opts.patch_blending:
+                ref_c2w, src_c2ws, src_intr, src_images = ref_src_info(scene, img_idx)
+                blending_inputs = {
+                    "color_maps": src_images,
+                    "w2cs": camera_inverse(src_c2ws),
+                    "intrinsics": src_intr,
+                    "query_c2w": ref_c2w,
+                    "rays_uv": sample["rays_ndc_uv"][rows] if opts.patch_blending else None,
+                    "img_index": None,
+                }
 
-        ret = renderer.render(
-            params, rays_o, rays_d, near, far, generator=generator, noise=render_noise,
-            cos_anneal_ratio=sched["cos_anneal_ratio"],
-            flip_saturation=sched["flip_saturation"],
-            background_rgb=(torch.ones((1, 3), device=rays_o.device)
-                            if tcfg.use_white_bkgd else None),
-            blending=blending_inputs, opts=opts,
-            gather=no_gather if shard is None else shard.gather)
-        if shard is not None:
-            ret.update({key: shard.gather(ret[key]) for key in PER_RAY if ret[key] is not None})
+        with span("step.render"):
+            ret = renderer.render(
+                params, rays_o, rays_d, near, far, generator=generator, noise=render_noise,
+                cos_anneal_ratio=sched["cos_anneal_ratio"],
+                flip_saturation=sched["flip_saturation"],
+                background_rgb=(torch.ones((1, 3), device=rays_o.device)
+                                if tcfg.use_white_bkgd else None),
+                blending=blending_inputs, opts=opts,
+                gather=no_gather if shard is None else shard.gather)
+            if shard is not None:
+                ret.update({key: shard.gather(ret[key]) for key in PER_RAY
+                            if ret[key] is not None})
 
-        weight_sum = ret["weight_sum"]
-        patch_mask = None
-        if ret["patch_colors"] is not None:
-            patch_mask = (ret["patch_mask"][:, None]
-                          * (weight_sum > 0.5).to(torch.float32)) > 0.0
-        pixel_mask = mask if use_mask_loss else None
-        weights = ColorLossWeights(color_base=sched["color_base_weight"],
-                                   color=sched["color_weight"],
-                                   color_pixel=sched["color_pixel_weight"],
-                                   color_patch=sched["color_patch_weight"])
-        closs = color_loss(weights, ret["color_base"], ret["color"], true_rgb,
-                           ret["color_pixel"], pixel_mask, ret["patch_colors"],
-                           sample["rays_patch_color"], patch_mask,
-                           patch_loss_type=ccfg.patch_loss_type, h_patch_size=h_patch)
+        with span("step.loss"):
+            weight_sum = ret["weight_sum"]
+            patch_mask = None
+            if ret["patch_colors"] is not None:
+                patch_mask = (ret["patch_mask"][:, None]
+                              * (weight_sum > 0.5).to(torch.float32)) > 0.0
+            pixel_mask = mask if use_mask_loss else None
+            weights = ColorLossWeights(color_base=sched["color_base_weight"],
+                                       color=sched["color_weight"],
+                                       color_pixel=sched["color_pixel_weight"],
+                                       color_patch=sched["color_patch_weight"])
+            closs = color_loss(weights, ret["color_base"], ret["color"], true_rgb,
+                               ret["color_pixel"], pixel_mask, ret["patch_colors"],
+                               sample["rays_patch_color"], patch_mask,
+                               patch_loss_type=ccfg.patch_loss_type, h_patch_size=h_patch)
 
-        mask_l = bce_mask_loss(weight_sum, mask)
-        total = (closs["loss"]
-                 + mask_l * sched["mask_weight"]
-                 + ret["gradient_error_near_surface"] * sched["igr_ns_weight"]
-                 + ret["sparse_error"] * sched["sparse_weight"]
-                 + ret["gradient_error"] * sched["igr_weight"])
+            mask_l = bce_mask_loss(weight_sum, mask)
+            total = (closs["loss"]
+                     + mask_l * sched["mask_weight"]
+                     + ret["gradient_error_near_surface"] * sched["igr_ns_weight"]
+                     + ret["sparse_error"] * sched["sparse_weight"]
+                     + ret["gradient_error"] * sched["igr_weight"])
 
-        with torch.no_grad():
-            mask_sum = mask.sum() + 1e-5
-            ray_mask = (mask[:, 0] > 0.5).to(torch.float32)
-            udf_min_per_ray = ret["udf"].min(dim=1).values
-            udf_min = torch.sum(udf_min_per_ray * ray_mask) / torch.clamp(ray_mask.sum(), min=1.0)
-            metrics = {
-                "loss": total,
-                "color_total_loss": closs["loss"],
-                "color_base_loss": closs["color_base_loss"],
-                "color_loss": closs["color_loss"],
-                "color_pixel_loss": closs["color_pixel_loss"],
-                "color_patch_loss": closs["color_patch_loss"],
-                "mask_loss": mask_l,
-                "gradient_error": ret["gradient_error"],
-                "gradient_error_near_surface": ret["gradient_error_near_surface"],
-                "sparse_error": ret["sparse_error"],
-                "psnr": psnr(ret["color"], true_rgb, mask),
-                "variance": torch.mean(ret["variance"]),
-                "beta": torch.mean(ret["beta"]),
-                "gamma": torch.mean(ret["gamma"]),
-                "udf_min": udf_min,
-                "udf_mean": torch.mean(ret["udf"]),
-                "weight_sum": torch.sum(ret["weight_sum"] * mask) / mask_sum,
-                "weight_sum_fg_bg": torch.sum(ret["weight_sum_fg_bg"] * mask) / mask_sum,
-                "blend_strip_cover": ret["blend_strip_cover"],
-            }
-            metrics = {k: v.detach().reshape(()) for k, v in metrics.items()}
+            with torch.no_grad():
+                mask_sum = mask.sum() + 1e-5
+                ray_mask = (mask[:, 0] > 0.5).to(torch.float32)
+                udf_min_per_ray = ret["udf"].min(dim=1).values
+                udf_min = (torch.sum(udf_min_per_ray * ray_mask)
+                           / torch.clamp(ray_mask.sum(), min=1.0))
+                metrics = {
+                    "loss": total,
+                    "color_total_loss": closs["loss"],
+                    "color_base_loss": closs["color_base_loss"],
+                    "color_loss": closs["color_loss"],
+                    "color_pixel_loss": closs["color_pixel_loss"],
+                    "color_patch_loss": closs["color_patch_loss"],
+                    "mask_loss": mask_l,
+                    "gradient_error": ret["gradient_error"],
+                    "gradient_error_near_surface": ret["gradient_error_near_surface"],
+                    "sparse_error": ret["sparse_error"],
+                    "psnr": psnr(ret["color"], true_rgb, mask),
+                    "variance": torch.mean(ret["variance"]),
+                    "beta": torch.mean(ret["beta"]),
+                    "gamma": torch.mean(ret["gamma"]),
+                    "udf_min": udf_min,
+                    "udf_mean": torch.mean(ret["udf"]),
+                    "weight_sum": torch.sum(ret["weight_sum"] * mask) / mask_sum,
+                    "weight_sum_fg_bg": torch.sum(ret["weight_sum_fg_bg"] * mask) / mask_sum,
+                    "blend_strip_cover": ret["blend_strip_cover"],
+                }
+                metrics = {k: v.detach().reshape(()) for k, v in metrics.items()}
         return total, metrics
 
     return loss_fn
@@ -198,7 +204,8 @@ def build_loss_fn(cfg: Config, renderer: UDFRenderer, *, blending: bool = False,
 def param_grads(total: torch.Tensor, params: Params) -> Dict[tuple, torch.Tensor]:
     """d total / d leaf for every parameter leaf (None where unused)."""
     paths, tensors = zip(*leaves(params))
-    grads = torch.autograd.grad(total, tensors, allow_unused=True)
+    with span("step.grad"):
+        grads = torch.autograd.grad(total, tensors, allow_unused=True)
     return dict(zip(paths, grads))
 
 
@@ -222,7 +229,8 @@ def build_step_body(cfg: Config, renderer: UDFRenderer, *, blending: bool = Fals
         lr_fn = make_lr_fn(sched["lr_geo"], sched["lr_main"], sched["lr_main"])
         trainable_fn = make_trainable_fn(bcfg, sched["variance_trainable"],
                                          sched["beta_trainable"])
-        adam(params, grads, opt_state, lr_fn, trainable_fn)
+        with span("step.adam"):
+            adam(params, grads, opt_state, lr_fn, trainable_fn)
         return metrics
 
     return body
@@ -294,23 +302,25 @@ class TrainWindow:
                              f"and {tuple(scheds.shape)}")
         if noise is not None and len(noise) != k:
             raise ValueError(f"noise: {len(noise)} draws for a window of {k}")
-        dev = scene["images"].device
-        rows = torch.empty((k, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
-        for r in range(0, k, u):
-            draws = [noise[r + j] if noise is not None else draw_noise(self.cfg, scene, generator)
-                     for j in range(u)]
-            st = self._buffers(draws, dev)
-            for j, d in enumerate(draws):
-                if d.keys() != st["noise"][j].keys():
-                    raise ValueError(f"draws {sorted(d)} differ from the window's "
-                                     f"{sorted(st['noise'][j])}")
-                for key, t in d.items():
-                    st["noise"][j][key].copy_(t)
-            st["idx"].copy_(img_idxs[r:r + u])
-            st["sched"].copy_(scheds[r:r + u])
-            self._run(params, opt_state, scene, dev)
-            rows[r:r + u].copy_(st["rows"])
-        return rows
+        with span("window.call"):
+            dev = scene["images"].device
+            rows = torch.empty((k, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
+            for r in range(0, k, u):
+                with span("window.draws"):
+                    draws = [noise[r + j] if noise is not None
+                             else draw_noise(self.cfg, scene, generator) for j in range(u)]
+                    st = self._buffers(draws, dev)
+                    for j, d in enumerate(draws):
+                        if d.keys() != st["noise"][j].keys():
+                            raise ValueError(f"draws {sorted(d)} differ from the window's "
+                                             f"{sorted(st['noise'][j])}")
+                        for key, t in d.items():
+                            st["noise"][j][key].copy_(t)
+                    st["idx"].copy_(img_idxs[r:r + u])
+                    st["sched"].copy_(scheds[r:r + u])
+                self._run(params, opt_state, scene, dev)
+                rows[r:r + u].copy_(st["rows"])
+            return rows
 
     def _buffers(self, draws: Sequence[Noise], dev) -> Dict[str, Any]:
         if self.static is None:
@@ -334,6 +344,7 @@ class TrainWindow:
 
     def _run(self, params, opt_state, scene, dev) -> None:
         if dev.type != "cuda":
+            count("window.eager_units")
             self._unit(params, opt_state, scene)
             return
         bound = tuple(t.data_ptr() for tree in (params, opt_state, scene)
@@ -349,10 +360,13 @@ class TrainWindow:
                 self._unit(params, opt_state, scene)
             main.wait_stream(self.stream)
             self.warm += 1
+            count("window.eager_units")
             return
         if self.graph is None:
             self._capture(params, opt_state, scene, bound)
-        self.graph.replay()
+        with span("window.replay"):
+            self.graph.replay()
+        count("window.replays")
         for kernel, n in self.per_replay:
             kernel.launches += n
 
@@ -366,6 +380,7 @@ class TrainWindow:
         for kernel, n in zip(kernels, before):  # the capture launched nothing
             kernel.launches = n
         self.graph, self.bound = graph, bound
+        count("window.captures")
 
 
 def build_train_window(cfg: Config, renderer: UDFRenderer, *, blending: bool, window: int,

@@ -14,6 +14,7 @@ names; pixels within 1 (uint8 truncation of values that differ by ~1e-5
 may fall on two sides of an integer). Ground truth at a resolution level:
 within 1 of OpenCV (its 11-bit fixed-point weights)."""
 
+import json
 import logging
 import os
 
@@ -33,7 +34,7 @@ from neuraludf_tpu_torch.data import image as timage
 from neuraludf_tpu_torch.data.synthetic import generate_scene
 from neuraludf_tpu_torch.train import colormap
 from neuraludf_tpu_torch.train import runner as trunner
-from neuraludf_tpu_torch.utils import hdf5
+from neuraludf_tpu_torch.utils import hdf5, trace
 
 IDX, ITER = 3, 7
 TOL = {"color": 1e-4, "color_pixel": 1e-4, "normal": 5e-4, "depth": 5e-4}
@@ -302,8 +303,8 @@ def test_periodic_validation_hooks(scene_dir, tmp_path, monkeypatch, caplog):
 
 
 def test_cli_modes(scene_dir, tmp_path, monkeypatch):
-    """train with --profile_dir and --vis_ray writes a trace and the ray
-    statistics; validate_image, save_hdf5 and vis_one_ray run from the newest
+    """train with --profile_dir and --vis_ray writes a trace, which holds the
+    program's spans, and the ray statistics; validate_image, save_hdf5 and vis_one_ray run from the newest
     checkpoint. The meshes (tests/test_torch_runner_mesh.py) are stubbed."""
     monkeypatch.setattr(trunner, "default_device", lambda gpu=0: torch.device("cpu"))
     meshes = []
@@ -319,6 +320,10 @@ def test_cli_modes(scene_dir, tmp_path, monkeypatch):
                       "--profile_dir", str(prof)])
     exp = tmp_path / "exp" / "val"
     assert (prof / "trace.json").stat().st_size > 0
+    with open(prof / "trace.json") as f:  # the program's spans are in the operator's trace
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"runner.window", "window.call", "step.render"} <= names
+    assert not trace.enabled()  # the profiled training alone was traced
     assert meshes == ["vm", None, "vm", None, 16]  # iterations 1 and 2, then the closing one
     assert (exp / "checkpoints" / "ckpt_000002.ckpt").is_file()
     assert (exp / "ray_statis" / "step2" / "statis_px24_py10.npy").is_file()
