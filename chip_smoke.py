@@ -6,8 +6,9 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. build ``neuraludf_tpu_torch/csrc/fused_distance.cu`` and
-   ``csrc/strip_sample.cu`` for sm_90a, both nvcc processes started together;
+2. build ``neuraludf_tpu_torch/csrc/fused_distance.cu``,
+   ``csrc/strip_sample.cu`` and ``csrc/adam.cu`` for sm_90a, the nvcc
+   processes started together;
 3. kernels K1 (fused distance forward) and K2 (its second-order backward)
    at the main path's width (58,368 points, the 8x256 net of
    ``confs/synthetic_smoke.conf``, its ``abs`` head), each tier ("default",
@@ -20,6 +21,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    skip into the second, "high" by RMS against its explicit version; and
    "highest" on a 128-wide net, which the sweeps refuse, through the f32
    GEMMs;
+3a. ``[adam]``: the Adam kernel against the plain update on the card, on
+   the DTU tree (85 leaves, one without a gradient; variance and beta gated
+   off, then on; gamma and zeta as the floats 0 and 1; the learning rates
+   0-dim views of a schedule row): 20 steps of ``adam_step``, and of
+   ``flat_adam_step`` against it bit for bit, then the update captured in a
+   CUDA graph and replayed 5 times on new gradients and rows; step counts
+   exact, p, m and v within ``TOL_ADAM_ULPS``; the training phases below
+   check that it runs once a step (and scan);
 4. the synthetic sphere scene (16 views, 600x800) with the port's generator;
 5. one training loss and its gradients on a small batch through the kernels
    (tiers "highest" and "high") against the plain autograd path;
@@ -113,7 +122,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
     on the card and one graphed window of 50 stage-1 steps at the DTU widths,
     K1 = K2 = one a step;
 12. CUDA-event times of K1, K2 (each tier), K3, their plain versions and
-    K3's library call, at the training shapes and at the validation chunk's; the profile
+    K3's library call, at the training shapes and at the validation chunk's;
+    of the Adam kernel and the plain ``adam_step`` and ``flat_adam_step`` on
+    the DTU tree, each a graph of 10 updates; the profile
     of one validation chunk; the profile of a steady eager step of each
     path.
 
@@ -331,6 +342,13 @@ GARMENT_MESH_RES = 128
 # graphed window of BMVS_STEPS stage-1 steps at the DTU widths on it.
 BMVS_DIR = ROOT / "tests" / "data" / "bmvs_sphere"
 BMVS_STEPS = 50
+
+# [adam]: the Adam kernel against the plain update on the DTU tree
+ADAM_CONF = ROOT / "confs" / "udf_dtu_blending.conf"
+ADAM_STEPS = 20
+ADAM_REPLAYS = 5  # replays of the captured update
+ADAM_TIMED = 10  # updates in each timed graph
+TOL_ADAM_ULPS = 1  # p, m, v: the card's powf may round the bias corrections apart from torch's
 
 
 def log(msg: str) -> None:
@@ -633,6 +651,202 @@ def library_sample(images, gx, gy):
                          align_corners=True)  # [V, 3, NW, P]
 
 
+def ordered_bits(t: torch.Tensor) -> torch.Tensor:
+    """f32 values as integers in the order of the values, one apart per ulp
+    (+0 and -0 both 0)."""
+    i = t.detach().contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def adam_tree(dev):
+    """The DTU tree (``ADAM_CONF``: 85 leaves, 1,291,484 elements) at its
+    seeded init on ``dev``, its optimizer state, and the leaf that gets no
+    gradient (a weight of the background NeRF, as in a garment step)."""
+    from neuraludf_tpu_torch import config as config_mod
+    from neuraludf_tpu_torch.train import optim
+    from neuraludf_tpu_torch.train.runner import init_params
+
+    cfg = config_mod.load(str(ADAM_CONF), case="sphere")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    return cfg, params, optim.init_adam_state(params), ("nerf", "feature", "w")
+
+
+def adam_steps(cfg, params, no_grad, n_steps: int, seed: int):
+    """Per step, the gradients (each leaf at a scale of its own from 1e-6 to
+    10, none for ``no_grad``) and a schedule row on the parameters' device:
+    the learning rates ramp up, variance and beta are gated off for the
+    first 5 and 3 steps, then on."""
+    from neuraludf_tpu_torch.train import optim, schedules
+
+    dev = next(iter(optim.leaves(params)))[1].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    paths = list(optim.leaves(params))
+    scale = {path: 10.0 ** (-6 + 7 * i / (len(paths) - 1)) for i, (path, _) in enumerate(paths)}
+    keys = schedules.SCHEDULE_KEYS
+    out = []
+    for j in range(n_steps):
+        grads = {path: None if path == no_grad else
+                 torch.randn(p.shape, generator=gen, device=dev) * scale[path]
+                 for path, p in paths}
+        row = torch.zeros(len(keys), dtype=torch.float32, device=dev)
+        ramp = min(1.0, (j + 1) / 10)
+        row[keys.index("lr_geo")] = 2e-4 * ramp
+        row[keys.index("lr_main")] = 5e-4 * ramp
+        row[keys.index("variance_trainable")] = float(j >= 5)
+        row[keys.index("beta_trainable")] = float(j >= 3)
+        out.append((grads, row))
+    return out
+
+
+def adam_fns(cfg, row):
+    """lr_fn and trainable_fn of a step body over ``row``: the learning
+    rates and the variance and beta gates 0-dim views of the row, gamma and
+    zeta the floats 0 and 1."""
+    from neuraludf_tpu_torch.train import optim, schedules
+
+    s = schedules.unpack_row(row)
+    bcfg = dataclasses.replace(cfg.model.beta_network, requires_grad_gamma=False,
+                               requires_grad_zeta=True)
+    return (optim.make_lr_fn(s["lr_geo"], s["lr_main"], s["lr_main"]),
+            optim.make_trainable_fn(bcfg, s["variance_trainable"], s["beta_trainable"]))
+
+
+def adam_differences(a_params, a_state, b_params, b_state) -> dict:
+    """Largest ulp distance and count of unequal elements of p, m, v over
+    every leaf; whether every step count is equal."""
+    from neuraludf_tpu_torch.train import optim
+
+    out = {"p": [0, 0], "m": [0, 0], "v": [0, 0], "t_equal": True}
+    for (path, pa), (_, pb) in zip(optim.leaves(a_params), optim.leaves(b_params)):
+        sa, sb = optim.get_path(a_state, path), optim.get_path(b_state, path)
+        for name, x, y in (("p", pa, pb), ("m", sa["m"], sb["m"]), ("v", sa["v"], sb["v"])):
+            d = (ordered_bits(x) - ordered_bits(y)).abs()
+            out[name] = [max(out[name][0], int(d.max())), out[name][1] + int((d > 0).sum())]
+        out["t_equal"] &= bool(torch.equal(sa["t"], sb["t"]))
+    return out
+
+
+def check_adam_differences(name: str, diff: dict) -> None:
+    if not diff["t_equal"] or any(diff[k][0] > TOL_ADAM_ULPS for k in ("p", "m", "v")):
+        raise AssertionError(f"[adam] {name}: the kernel is more than {TOL_ADAM_ULPS} ulp from "
+                             f"the plain update, or a step count differs: {diff}")
+
+
+def adam_launches() -> int:
+    from neuraludf_tpu_torch.ops.adam import fused_adam
+
+    return fused_adam.launches
+
+
+def check_adam_launched(before: int, n_updates: int, where: str) -> int:
+    """The Adam kernel's launches since ``before``, which must be one an
+    update: the main path went through it."""
+    n = adam_launches() - before
+    if n != n_updates:
+        raise AssertionError(f"[{where}] the Adam kernel ran {n} times in {n_updates} updates")
+    return n
+
+
+def check_adam(dev) -> dict:
+    """[adam]: the Adam kernel (``ops/adam.py``) against the plain update
+    (``optim.adam_step_plain``) on the card, on the DTU tree over
+    ADAM_STEPS steps (``adam_steps``); ``flat_adam_step`` through the kernel
+    against ``adam_step`` through it, bit for bit; then the kernel captured
+    in a CUDA graph over static gradients and a static schedule row,
+    replayed ADAM_REPLAYS times on new ones, against as many plain steps.
+    Step counts exact; p, m and v within TOL_ADAM_ULPS."""
+    from neuraludf_tpu_torch.ops.adam import fused_adam
+    from neuraludf_tpu_torch.train import optim
+
+    clone = lambda tree: {k: clone(v) if isinstance(v, dict) else v.detach().clone()
+                          for k, v in tree.items()}
+    cfg, params, state, no_grad = adam_tree(dev)
+    (pk, sk), (pf, sf) = (clone(params), clone(state)), (clone(params), clone(state))
+    launched = fused_adam.launches
+    for grads, row in adam_steps(cfg, params, no_grad, ADAM_STEPS, seed=1):
+        lr_fn, tr_fn = adam_fns(cfg, row)
+        optim.adam_step(pk, grads, sk, lr_fn, tr_fn)
+        optim.flat_adam_step(pf, grads, sf, lr_fn, tr_fn)
+        optim.adam_step_plain(params, grads, state, lr_fn, tr_fn)
+    torch.cuda.synchronize()
+    out = {"leaves": len(list(optim.leaves(params))),
+           "elements": sum(p.numel() for _, p in optim.leaves(params)),
+           "launches": fused_adam.launches - launched,
+           "steps": adam_differences(pk, sk, params, state),
+           "flat_vs_tree": adam_differences(pf, sf, pk, sk)}
+    if out["launches"] != 2 * ADAM_STEPS:
+        raise AssertionError(f"[adam] {out['launches']} launches in {ADAM_STEPS} steps of "
+                             f"adam_step and flat_adam_step")
+    check_adam_differences("steps", out["steps"])
+    if any(out["flat_vs_tree"][k][0] for k in ("p", "m", "v")) or not out["flat_vs_tree"][
+            "t_equal"]:
+        raise AssertionError(f"[adam] flat_adam_step differs from adam_step: "
+                             f"{out['flat_vs_tree']}")
+
+    # the same inside a captured graph: its gradients and row are static
+    # buffers, each replay's copied in first
+    steps = adam_steps(cfg, params, no_grad, ADAM_REPLAYS, seed=2)
+    static_g = {path: None if g is None else torch.zeros_like(g)
+                for path, g in steps[0][0].items()}
+    static_row = torch.zeros_like(steps[0][1])
+    lr_fn, tr_fn = adam_fns(cfg, static_row)
+    graph = torch.cuda.CUDAGraph()
+    launched = fused_adam.launches
+    with torch.cuda.graph(graph):
+        optim.adam_step(pk, static_g, sk, lr_fn, tr_fn)
+    out["capture_launches"] = fused_adam.launches - launched
+    for grads, row in steps:
+        for path, g in grads.items():
+            if g is not None:
+                static_g[path].copy_(g)
+        static_row.copy_(row)
+        graph.replay()
+        optim.adam_step_plain(params, grads, state, *adam_fns(cfg, row))
+    torch.cuda.synchronize()
+    out["graph"] = adam_differences(pk, sk, params, state)
+    if out["capture_launches"] != 1:
+        raise AssertionError(f"[adam] the capture counted {out['capture_launches']} launches")
+    check_adam_differences("graph", out["graph"])
+    log(f"[adam] {out['leaves']} leaves, {out['elements']} elements: {ADAM_STEPS} steps "
+        f"{out['steps']}, then {ADAM_REPLAYS} graph replays {out['graph']} (ulps max, elements "
+        f"unequal) from the plain update; flat = tree bit for bit")
+    return out
+
+
+def time_adam(dev, card) -> dict:
+    """Device ms of one Adam update of the DTU tree: the kernel, the plain
+    ``adam_step`` and the plain ``flat_adam_step``, each as a CUDA graph of
+    ADAM_TIMED updates (CUDA events over its replays: the device's time,
+    as a training window runs it, not the host's launches); the kernel also
+    called eagerly; the bytes one pass must move and their time at 3.35 TB/s."""
+    from neuraludf_tpu_torch.train import optim
+
+    cfg, params, state, no_grad = adam_tree(dev)
+    grads, row = adam_steps(cfg, params, no_grad, 1, seed=3)[0]
+    row.fill_(0.0)  # lr 0: the parameters stay; every trainability 0 but the floats'
+    lr_fn, tr_fn = adam_fns(cfg, row)
+    times = {}
+    for name, fn in (("kernel", optim.adam_step), ("plain", optim.adam_step_plain),
+                     ("flat_plain", optim.flat_adam_step_plain)):
+        fn(params, grads, state, lr_fn, tr_fn)  # warm-up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(ADAM_TIMED):
+                fn(params, grads, state, lr_fn, tr_fn)
+        times[name] = cuda_ms(graph.replay, 5) / ADAM_TIMED
+        del graph
+    times["kernel_eager"] = cuda_ms(lambda: optim.adam_step(params, grads, state, lr_fn, tr_fn),
+                                    50)
+    n = sum(p.numel() for _, p in optim.leaves(params))
+    nbytes = 28 * n - 4 * optim.get_path(params, no_grad).numel()  # no gradient read there
+    times["bound"] = nbytes / PEAK_BYTES * 1e3
+    log(f"[time] Adam kernel {times['kernel']:.4f} ms a tree in a graph "
+        f"({times['kernel_eager']:.4f} eager), plain adam_step {times['plain']:.3f} ms, plain flat_adam_step "
+        f"{times['flat_plain']:.3f} ms, bound {times['bound']:.4f} ms ({nbytes / 1e6:.1f} MB) "
+        f"[{card}]")
+    return {"ms": times, "bytes": nbytes}
+
+
 def check_strip_sample(scene, dev):
     """K3 at the finetune's shape on seeded positions."""
     return check_strip_sample_at(*k3_inputs(scene, dev), both_sides=True)
@@ -734,7 +948,7 @@ def train_main_path(runner, cfg, exp_dir, counters, on_path):
     ran. Returns the launches and the metric rows of the run."""
     for k in counters.values():
         k.launches = 0
-    first = runner.iter_step
+    first, adam_before = runner.iter_step, adam_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     runner.train()
@@ -755,6 +969,7 @@ def train_main_path(runner, cfg, exp_dir, counters, on_path):
     if any(n != (n_steps if name in on_path else 0) for name, n in launches.items()):
         raise AssertionError(f"kernels {on_path} did not run once in every step, or another "
                              f"ran: {launches}, {n_steps} steps")
+    launches["Adam"] = check_adam_launched(adam_before, n_steps, "train")
     if not means[-1] <= means[0]:
         raise AssertionError(f"training loss did not decrease: window means {means}")
     return launches, rows
@@ -1003,6 +1218,7 @@ def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finet
     scheds, rows, idxs = window_inputs(g_runner, WINDOW_STEPS)
     for k in counters.values():
         k.launches = 0
+    adam_before = adam_launches()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
@@ -1022,6 +1238,7 @@ def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finet
     if any(n != (WINDOW_STEPS if name in on_path else 0) for name, n in launches.items()):
         raise AssertionError(f"[window] kernels {on_path} did not run once a graphed step: "
                              f"{launches}")
+    launches["Adam"] = check_adam_launched(adam_before, WINDOW_STEPS, "window")
     eager = eager_steps(e_runner, scheds, rows, idxs)
     eager2 = eager_steps(e2_runner, scheds, rows, idxs)
     out = {"launches": launches, "memory": memory,
@@ -1684,6 +1901,7 @@ def multi_scan_run(cfg, scene_dir, out_dir, n_scans, dev, counters, on_path, *, 
     first = ms.iter_step
     for k in counters.values():
         k.launches = 0
+    adam_before = adam_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     ms.train()
@@ -1696,6 +1914,7 @@ def multi_scan_run(cfg, scene_dir, out_dir, n_scans, dev, counters, on_path, *, 
     if any(n != (n_scans * n_steps if name in on_path else 0) for name, n in launches.items()):
         raise AssertionError(f"[multi_scan] kernels {on_path} did not run once a scan and "
                              f"iteration: {launches}, {n_scans} x {n_steps}")
+    launches["Adam"] = check_adam_launched(adam_before, n_scans * n_steps, "multi_scan")
     equal = []
     for i, scan in enumerate(ms.scans):
         rows = jsonl_rows(Path(scan.base_exp_dir) / "logs" / "metrics.jsonl")[-n_steps:]
@@ -2143,6 +2362,7 @@ def main() -> int:
     from neuraludf_tpu_torch import config as config_mod
     from neuraludf_tpu_torch.data.synthetic import generate_scene
     from neuraludf_tpu_torch.mesh import build as mesh_build
+    from neuraludf_tpu_torch.ops import adam as adam_op
     from neuraludf_tpu_torch.ops import build
     from neuraludf_tpu_torch.ops import fused_distance as fd
     from neuraludf_tpu_torch.ops import strip_sample as ss
@@ -2156,9 +2376,9 @@ def main() -> int:
     t0 = time.time()
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
         engine = pool.submit(mesh_build.ensure_built)
-        built = build.compile_sources(["fused_distance", "strip_sample"])  # in parallel
+        built = build.compile_sources(["fused_distance", "strip_sample", "adam"])  # in parallel
         engine = engine.result()
-    fd.library(), ss.library()
+    fd.library(), ss.library(), adam_op.library()
     log(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in built.items())}, "
         f"mesh/csrc -> {engine.name} in {time.time() - t0:.1f} s")
 
@@ -2193,6 +2413,12 @@ def main() -> int:
     high_rounding = check_high_rounding(ucfg, dev)
     refused = check_refused_net(ucfg, dev)
     log(f"[kernels] ok in {time.time() - t0:.1f} s; K2's outputs bit-equal over two calls")
+
+    t0 = time.time()
+    log(f"[adam] the Adam kernel against the plain update: {ADAM_STEPS} steps and "
+        f"{ADAM_REPLAYS} graph replays on the tree of {ADAM_CONF.name}")
+    adam = check_adam(dev)
+    log(f"[adam] ok in {time.time() - t0:.1f} s")
 
     t0 = time.time()
     if not (scene_dir / "cameras.npz").is_file():
@@ -2290,6 +2516,7 @@ def main() -> int:
     k1_val_times, k1_val_bytes, k1_val_flops = time_kernels(ucfg, val["k1_inputs"], card,
                                                             launches_a_call, backward=False)
     k3_val_times, k3_val_bytes, k3_val_flops = time_strip_sample(val["k3_inputs"], card)
+    adam_times = time_adam(dev, card)
     # after cuda_launches: a profile taken before it cost that count its launches
     profile_chunk(runner)
     profile_difference(*(profile_step(r) for r in (runner, ft_runner)))
@@ -2400,6 +2627,25 @@ def main() -> int:
             "max_abs_err": val["k3_errors"]["plain"], "ms": k3_val_times["K3"],
             "plain_ms": k3_val_times["K3plain"], "library_ms": k3_val_times["K3library"],
             "bound_ms": bound_ms(k3_val_bytes, k3_val_flops, "highest")},
+    })
+    kernels.append({
+        "name": "adam", "route": "cuda", "source": "neuraludf_tpu_torch/csrc/adam.cu",
+        "replaces": None,  # the JAX package leaves Adam to XLA's fusion
+        "launches_by_path": {"stage1": launches_stage1["Adam"], "finetune": launches_ft["Adam"],
+                             "multi_scan": (multi["stage1"]["launches"]["Adam"]
+                                            + multi["finetune"]["launches"]["Adam"])},
+        "window_launches": {p: window[p]["launches"]["Adam"] for p in window},
+        "cuda_launches_per_call": 2,
+        "checked_at": [f"the tree of {ADAM_CONF.name}: {adam['leaves']} leaves, "
+                       f"{adam['elements']} elements, {ADAM_STEPS} steps and {ADAM_REPLAYS} "
+                       f"graph replays"],
+        "max_ulps": {k: max(adam["steps"][k][0], adam["graph"][k][0]) for k in ("p", "m", "v")},
+        "unequal_elements": {k: adam["steps"][k][1] + adam["graph"][k][1]
+                             for k in ("p", "m", "v")},
+        "ms": adam_times["ms"]["kernel"], "eager_ms": adam_times["ms"]["kernel_eager"],
+        "plain_ms": adam_times["ms"]["plain"], "flat_plain_ms": adam_times["ms"]["flat_plain"],
+        "bound_ms": adam_times["ms"]["bound"], "bound_by": "bytes",
+        "bytes": adam_times["bytes"], "library_ms": None,
     })
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "neuraludf_tpu"))
     if jax_modules:

@@ -8,9 +8,12 @@ not used: its bias correction counts steps per optimizer, not per leaf, and
 it does not take the gated form below.
 
 Learning rates and trainability scalars are Python floats or 0-dim tensors
-(a captured step graph reads them from its schedule row). ``adam_step``
-updates leaf by leaf; ``flat_adam_step`` computes the same update at once
-over the concatenated parameters (``cfg.train.flat_adam``).
+(a captured step graph reads them from its schedule row). For CUDA tensors
+``adam_step`` and ``flat_adam_step`` run the Adam kernel (``ops/adam.py``:
+every leaf in one pass, then the step counts; the same update bit for bit
+where the card's ``powf`` agrees). For CPU tensors ``adam_step_plain``
+updates leaf by leaf and ``flat_adam_step_plain`` computes the same update
+at once over the concatenated parameters (``cfg.train.flat_adam``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Iterator, List, Tuple, Union
 
 import torch
+
+from ..ops.adam import AdamLeaf, fused_adam
 
 Params = Dict[str, Any]
 Scalar = Union[float, torch.Tensor]
@@ -71,10 +76,32 @@ def adam_update(param: torch.Tensor, grad: torch.Tensor, state: Dict[str, torch.
     state["t"].copy_(t)
 
 
+def adam_table(params: Params, grads: Dict[Tuple[str, ...], torch.Tensor], state: Params,
+               lr_fn: Callable[[tuple], Scalar], trainable_fn: Callable[[tuple], Scalar]
+               ) -> List[AdamLeaf]:
+    """The Adam kernel's rows, one a leaf in ``leaves`` order."""
+    out = []
+    for path, p in leaves(params):
+        st = get_path(state, path)
+        out.append(AdamLeaf(p, grads.get(path), st["m"], st["v"], st["t"], lr_fn(path),
+                            trainable_fn(path)))
+    return out
+
+
 def adam_step(params: Params, grads: Dict[Tuple[str, ...], torch.Tensor], state: Params,
-              lr_fn: Callable[[tuple], float], trainable_fn: Callable[[tuple], float]) -> None:
+              lr_fn: Callable[[tuple], Scalar], trainable_fn: Callable[[tuple], Scalar]) -> None:
     """Adam over every leaf. grads maps a leaf path to its gradient (a
-    missing or None gradient counts as zeros, as JAX would give)."""
+    missing or None gradient counts as zeros, as JAX would give). CUDA
+    tensors go to the Adam kernel, CPU tensors to ``adam_step_plain``; a
+    mixed device, a tensor not float32 or not contiguous raises."""
+    if not fused_adam(adam_table(params, grads, state, lr_fn, trainable_fn)):
+        adam_step_plain(params, grads, state, lr_fn, trainable_fn)
+
+
+def adam_step_plain(params: Params, grads: Dict[Tuple[str, ...], torch.Tensor], state: Params,
+                    lr_fn: Callable[[tuple], Scalar], trainable_fn: Callable[[tuple], Scalar]
+                    ) -> None:
+    """``adam_step`` as PyTorch operations, ``adam_update`` leaf by leaf."""
     for path, p in leaves(params):
         g = grads.get(path)
         if g is None:
@@ -82,12 +109,22 @@ def adam_step(params: Params, grads: Dict[Tuple[str, ...], torch.Tensor], state:
         adam_update(p, g, get_path(state, path), lr_fn(path), trainable_fn(path))
 
 
-@torch.no_grad()
 def flat_adam_step(params: Params, grads: Dict[Tuple[str, ...], torch.Tensor], state: Params,
                    lr_fn: Callable[[tuple], Scalar], trainable_fn: Callable[[tuple], Scalar]
                    ) -> None:
+    """``adam_step`` over the concatenated parameters (counterpart of the JAX
+    package's ``flat_adam_step``): the Adam kernel for CUDA tensors, which
+    walks every leaf in one pass, ``flat_adam_step_plain`` for CPU tensors."""
+    if not fused_adam(adam_table(params, grads, state, lr_fn, trainable_fn)):
+        flat_adam_step_plain(params, grads, state, lr_fn, trainable_fn)
+
+
+@torch.no_grad()
+def flat_adam_step_plain(params: Params, grads: Dict[Tuple[str, ...], torch.Tensor],
+                         state: Params, lr_fn: Callable[[tuple], Scalar],
+                         trainable_fn: Callable[[tuple], Scalar]) -> None:
     """``adam_step`` as one elementwise update over the concatenated parameter
-    vector (counterpart of the JAX package's ``flat_adam_step``).
+    vector, in PyTorch operations.
 
     Each element goes through the operations of ``adam_update`` in the same
     order and dtype, so the result is the same bit for bit; each leaf's

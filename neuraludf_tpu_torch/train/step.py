@@ -3,7 +3,8 @@
 
 ``build_loss_fn`` gives the total loss and the 19 ``METRIC_KEYS`` of one
 iteration; ``build_step_body`` adds the backward pass and the Adam update
-(``adam_step``, or ``flat_adam_step`` with ``cfg.train.flat_adam``).
+(``adam_step``, or ``flat_adam_step`` with ``cfg.train.flat_adam``: on a
+CUDA device both are the Adam kernel of ``ops/adam.py``).
 Built with ``blending=True`` they render the pixel and patch blending
 branches of the finetune and add their losses. A body takes its view as an
 int or a 0-dim device tensor, and its schedule values as a row of
@@ -256,11 +257,13 @@ def draw_noise(cfg: Config, scene, generator: torch.Generator,
 
 def launch_counters() -> tuple:
     """The kernel entry points whose ``launches`` count the kernels a step
-    launches (K1, K2, K3), and the counts of K1's and K2's routes."""
-    from ..ops import fused_distance, strip_sample
+    launches (K1, K2, K3, the Adam update), and the counts of K1's and K2's
+    routes."""
+    from ..ops import adam, fused_distance, strip_sample
 
     k1, k2 = fused_distance.fused_forward, fused_distance.fused_backward
-    return (k1, k2, strip_sample.strip_sample, *k1.routes.values(), *k2.routes.values())
+    return (k1, k2, strip_sample.strip_sample, adam.fused_adam, *k1.routes.values(),
+            *k2.routes.values())
 
 
 N_WARMUP = 2  # eager units of a window's bodies before their capture
