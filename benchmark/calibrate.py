@@ -1,7 +1,7 @@
 """Readings that the limits of ``correct`` are set from, on the card.
 
     python benchmark/calibrate.py --workload <cell> --seeds 1 2 ... \
-        [--control-seeds 1 2 3] [--fault half_batch|unchanged|k2_layer --fault-seeds 1 2 3] \
+        [--control-seeds 1 2 3] [--fault <fault> --fault-seeds 1 2 3] \
         [--f32-port] [--out <file>]
 
 For each seed, in one process (the scene is loaded once): the port's set-up
@@ -14,17 +14,22 @@ the port's place and held to the f32 reference on the same inputs (the
 upper readings). ``--fault`` plants one of ``harness.faults`` under the
 timed path: ``half_batch`` (half of every batch left out, the loss's means
 taken over the rest), ``unchanged`` (a step that leaves the state as it
-was) or ``k2_layer`` (K2 returns one layer's weight cotangents doubled),
-and reads it on ``--fault-seeds``. ``--f32-port`` is the witness: the
+was), ``k2_layer`` (K2 returns one layer's weight cotangents doubled) or,
+in a campaign, ``crossed_scans`` (scan 1 reads scan 0's scene), and reads
+it on ``--fault-seeds``. ``--f32-port`` is the witness: the
 port with every product in f32, no sound run. One JSON line a reading,
 with the worst leaves of each gap (for a look at what a reading comes
-from) and the raw readings of both sides.
+from) and the raw readings of both sides. In a campaign each number is the
+worst scan's, ``worst_scan`` names it, ``scans`` holds every scan's
+numbers, and the leaves and raw readings are lists, one a scan; its seeds
+share the scans' loaded scenes (``shared_datasets``).
 The benchmark's own runs run none of this.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -55,32 +60,70 @@ def port_in_f32():
         mlp.PRECISION_POLICY[role] = "highest"
 
 
+@contextlib.contextmanager
+def shared_datasets(loaded):
+    """Inside, the campaign runner's scans take their scenes from ``loaded``
+    (data directory and device -> the port's ``Dataset``), each loaded at
+    its first use; a run loads them anew."""
+    from neuraludf_tpu_torch.parallel import multi_scan
+
+    original = multi_scan.Dataset
+
+    def dataset(conf, device):
+        key = (conf.data_dir, str(device))
+        if key not in loaded:
+            loaded[key] = original(conf, device)
+        return loaded[key]
+
+    multi_scan.Dataset = dataset
+    try:
+        yield
+    finally:
+        multi_scan.Dataset = original
+
+
 def readings(cell, seeds, control_seeds, device, out, tag="program", extra=None):
     from neuraludf_tpu_torch.data.dataset import Dataset
 
-    dataset = None
+    dataset, loaded = None, {}
+    campaign = session.scans(cell.workload) > 1
+    one = (lambda xs: xs) if campaign else (lambda xs: xs[0])
     for seed in seeds:
         with tempfile.TemporaryDirectory(prefix="udfcal-") as exp_dir:
-            if dataset is None:
-                spec = session.scene_spec(cell.conf_path)
-                scene_dir, _ = session.scene.ensure_scene(spec)
-                cfg = session._load_cfg(cell.conf_path, exp_dir, str(scene_dir))
-                dataset = Dataset(cfg.dataset, device)
-            setup = session.build(cell, seed, device, exp_dir, dataset=dataset, extra=extra)
-            first, scene_dir, reference_s = setup.first, setup.scene_dir, setup.reference_s
-            port = session.program_side(first)
+            if campaign:
+                with shared_datasets(loaded):
+                    setup = session.build(cell, seed, device, exp_dir, extra=extra)
+            else:
+                if dataset is None:
+                    spec = session.scene_spec(cell.conf_path)
+                    scene_dir, _ = session.scene.ensure_scene(spec)
+                    cfg = session._load_cfg(cell.conf_path, exp_dir, str(scene_dir))
+                    dataset = Dataset(cfg.dataset, device)
+                setup = session.build(cell, seed, device, exp_dir, dataset=dataset, extra=extra)
+            firsts, dirs, reference_s = setup.firsts, setup.scene_dirs, setup.reference_s
+            ports = [session.program_side(f) for f in firsts]
             del setup
             session._free()
             with session.exact_f32():
-                ref = session.reference_side(cell, first, scene_dir, device, exp_dir)
-                line = {"workload": cell.name, "seed": seed, tag: check.compare(port, ref),
-                        "start_s": reference_s, "worst_leaves": check.leaf_gaps(port, ref),
-                        "raw": {tag: plain(port), "ref": plain(ref)}}
+                refs = [session.reference_side(cell, f, d, device, exp_dir)
+                        for f, d in zip(firsts, dirs)]
+                numbers, worst = check.compare_scans(ports, refs)
+                line = {"workload": cell.name, "seed": seed, tag: numbers, "start_s": reference_s}
+                if campaign:
+                    line["worst_scan"] = worst
+                    line["scans"] = {tag: [check.compare(p, r) for p, r in zip(ports, refs)]}
+                line["worst_leaves"] = one([check.leaf_gaps(p, r) for p, r in zip(ports, refs)])
+                line["raw"] = {tag: one([plain(p) for p in ports]),
+                               "ref": one([plain(r) for r in refs])}
                 if seed in control_seeds:
-                    ctl = session.reference_side(cell, first, scene_dir, device, exp_dir,
-                                                 rounding=CONTROL)
-                    line["control"] = check.compare(ctl, ref)
-                    line["raw"]["control"] = plain(ctl)
+                    ctls = [session.reference_side(cell, f, d, device, exp_dir, rounding=CONTROL)
+                            for f, d in zip(firsts, dirs)]
+                    line["control"], ctl_worst = check.compare_scans(ctls, refs)
+                    if campaign:
+                        line["scans"]["control"] = [check.compare(c, r)
+                                                    for c, r in zip(ctls, refs)]
+                        line["control_worst_scan"] = ctl_worst
+                    line["raw"]["control"] = one([plain(c) for c in ctls])
             print(json.dumps(line), flush=True)
             if out:
                 with open(out, "a") as f:

@@ -5,8 +5,9 @@ first steps, through the window's own call, and keeps what the plain
 reference needs to follow the first ``FOLLOW`` of them: each step's loss,
 the optimizer's first moments after step 1 and the parameters after step
 ``FOLLOW``. The reference then runs the same steps from the same start on
-the same draws, views and schedules, and seven numbers are worked out; a
-cell's ``limits`` name those it compares:
+the same draws, views and schedules, and seven numbers are worked out (in a
+campaign for each scan on its own, and each number's worst scan is what is
+judged); a cell's ``limits`` name those it compares:
 
 * ``loss_gap``: the largest |loss - loss_ref| / |loss_ref| over the steps;
 * ``eikonal_gap``: the same for the eikonal term alone (the loss's part
@@ -158,6 +159,16 @@ def compare(side: Dict[str, object], ref: Dict[str, object]) -> Dict[str, float]
     ug = max((_gap(l_side[k], l_ref[k], l_med) for k in l_ref), default=0.0)
     return {"loss_gap": lg, "eikonal_gap": eik, "udf_gap": udf, "color_gap": col,
             "grad_gap": gg, "udf_grad_gap": ug, "change_gap": cg}
+
+
+def compare_scans(sides, refs) -> Tuple[Dict[str, float], Dict[str, int]]:
+    """The seven numbers of each scan's side against its reference, and of
+    each number the worst scan's value (the largest; NaN is worst) and that
+    scan's index."""
+    per = [compare(s, r) for s, r in zip(sides, refs)]
+    rank = lambda v: float("inf") if v != v else v
+    worst = {k: max(range(len(per)), key=lambda i: rank(per[i][k])) for k in per[0]}
+    return {k: per[i][k] for k, i in worst.items()}, worst
 
 
 def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:

@@ -11,7 +11,9 @@ Each planter replaces one function of the port by a broken one through
 * ``k2_layer``: K2, the distance network's backward, returns the middle
   layer's weight and bias cotangents doubled (layer ``n_layers // 2``:
   ``lin4`` of the 8x256 net), as a cotangent doubled inside the sweep
-  would leave one layer's weight gradient.
+  would leave one layer's weight gradient;
+* ``crossed_scans``: in a campaign's window, scan 1's step body reads scan
+  0's scene (its images, masks and cameras) in place of its own.
 
 ``calibrate.py`` reads them on the card and ``tests/test_faults.py`` on the
 CPU; the benchmark's own runs plant none. ``CONTROL`` is the pair of types
@@ -73,10 +75,21 @@ def k2_layer(put: Callable = setattr) -> None:
     put(fields, "distance_value_and_gradient", doubled)
 
 
+def crossed_scans(put: Callable = setattr) -> None:
+    from neuraludf_tpu_torch.parallel import multi_scan
+
+    original = multi_scan.MultiScanWindow._unit
+
+    def crossed(self, params, opt_state, scene):
+        return original(self, params, opt_state, {**scene, 1: scene[0]})
+
+    put(multi_scan.MultiScanWindow, "_unit", crossed)
+
+
 # the control's types: the plain reference in the port's place with every
 # network product's operands in e4m3 and its cotangents in e5m2 (fp8
 # training's pair; the step below the configurations' bf16 operands)
 CONTROL = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 FAULTS: Dict[str, Callable] = {"half_batch": half_batch, "unchanged": unchanged,
-                               "k2_layer": k2_layer}
+                               "k2_layer": k2_layer, "crossed_scans": crossed_scans}

@@ -4,12 +4,14 @@
 
 runs one cell once on one card and prints, as the last line of its
 standard output, one JSON object: ``correct``, ``attempted`` (the steps
-of the measured window), ``failed`` (those of them that failed),
+of the measured window; in a campaign of S scans a step is an iteration of
+every scan), ``failed`` (those of them that failed),
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer ones), ``device``, with ``--trace 1`` a ``breakdown``, and last
 ``checks``, each number compared beside its limit, which also end standard
-error. Without a CUDA device, or with fewer than the cell asks for, it
-exits with 2 and prints no result; with JAX or the JAX package in
+error (in a campaign each number's worst scan, which ``readings`` names
+under ``worst_scan``). Without a CUDA device, or with fewer than the cell
+asks for, it exits with 2 and prints no result; with JAX or the JAX package in
 ``sys.modules`` once the window has closed, it exits with 3 and names them.
 """
 
@@ -169,9 +171,11 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
         peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         launched = {k: after[k] - before[k] for k in after}
         rows = session.window_rows(runner, first_iter, runner.iter_step)
-        why = session.failed_steps(rows, launched, setup.first["blending"], on_card)
+        n_scans = session.scans(cell.workload)
+        why = session.failed_steps(rows, launched, setup.first["blending"], on_card, n_scans)
         failed = steps if why else 0
-        window = {"steps": steps, "seconds": elapsed, "rays": steps * setup.cfg.train.batch_size}
+        window = {"steps": steps, "seconds": elapsed,
+                  "rays": steps * n_scans * setup.cfg.train.batch_size}
 
         summary, profiled, traced_s = None, 0, None
         if trace:
@@ -185,15 +189,16 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
                 metrics[m.name] = {"value": value, "unit": m.unit}
         del ctx
 
-        first, scene_dir = setup.first, setup.scene_dir
-        port_side = session.program_side(first)
+        firsts, scene_dirs = setup.firsts, setup.scene_dirs
+        port_sides = [session.program_side(f) for f in firsts]
         del setup, runner
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
         session.tf32_off()
-        ref = session.reference_side(cell, first, scene_dir, device, exp_dir)
-    numbers = check.compare(port_side, ref)
+        refs = [session.reference_side(cell, f, d, device, exp_dir)
+                for f, d in zip(firsts, scene_dirs)]
+    numbers, worst = check.compare_scans(port_sides, refs)
     limits = cell.workload["limits"]
     correct = check.judge(numbers, limits) and not why
     result = {"correct": bool(correct), "attempted": steps, "failed": failed,
@@ -202,6 +207,8 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
         result["breakdown"] = {"device_ops": [[n_, s] for n_, s in summary.top_ops],
                                "idle_gaps": [[n_, s] for n_, s in summary.idle_gaps]}
     result["readings"] = {k: v for k, v in numbers.items() if k not in limits}
+    if len(refs) > 1:
+        result["readings"]["worst_scan"] = worst
     result["checks"] = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
     if why:
         result["checks"]["failed_steps"] = {"value": failed, "limit": 0, "why": why}

@@ -7,8 +7,9 @@ read. ``ensure_scene`` writes it on a cell's first run into a fixed
 directory inside the checkout, named by its parameters, and later runs read
 it from there.
 
-* ``sphere``: closed surface, the radius-0.5 sphere at the origin, seen from
-  a ring of cameras at alternating elevations.
+* ``sphere``: closed surface, a sphere at the origin (radius 0.5 unless the
+  spec gives another ``radius``), seen from a ring of cameras at alternating
+  elevations.
 * ``garment``: the DF3D stand-in, a draped open skirt with openings at both
   ends (a zero-thickness double-sided sheet) over a black background.
 """
@@ -28,10 +29,20 @@ from reference.png import write_png
 CACHE = Path(__file__).resolve().parents[1] / ".cache" / "scenes"
 
 
+def _radius(spec: Dict[str, Any]) -> float:
+    r = float(spec.get("radius", SPHERE_RADIUS))
+    if r != SPHERE_RADIUS and spec["kind"] != "sphere":
+        raise ValueError(f"a radius is a sphere's; the scene is a {spec['kind']}")
+    return r
+
+
 def scene_dir(spec: Dict[str, Any], cache: Path = CACHE) -> Path:
-    """The fixed directory of a scene: {kind, views, height, width, focal}."""
-    return Path(cache) / (f"{spec['kind']}_{spec['views']}v_{spec['height']}x{spec['width']}"
-                    f"_f{spec['focal']:g}")
+    """The fixed directory of a scene: {kind, views, height, width, focal}
+    and, for a sphere of another radius than 0.5, ``radius``."""
+    name = (f"{spec['kind']}_{spec['views']}v_{spec['height']}x{spec['width']}"
+            f"_f{spec['focal']:g}")
+    r = _radius(spec)
+    return Path(cache) / (name if r == SPHERE_RADIUS else f"{name}_r{r:g}")
 
 
 def ensure_scene(spec: Dict[str, Any], cache: Path = CACHE) -> tuple:
@@ -44,7 +55,8 @@ def ensure_scene(spec: Dict[str, Any], cache: Path = CACHE) -> tuple:
     tmp = out.with_name(out.name + ".partial")
     shutil.rmtree(tmp, ignore_errors=True)
     generate_scene(str(tmp), kind=spec["kind"], n_views=int(spec["views"]),
-                   H=int(spec["height"]), W=int(spec["width"]), focal=float(spec["focal"]))
+                   H=int(spec["height"]), W=int(spec["width"]), focal=float(spec["focal"]),
+                   radius=_radius(spec))
     shutil.rmtree(out, ignore_errors=True)
     os.replace(tmp, out)
     return out, time.time() - t0
@@ -199,10 +211,9 @@ def _camera_ring(n_views: int, dist: float = 2.2) -> np.ndarray:
     return np.stack(locs)
 
 
-def _trace(rays_o, rays_d, kind: str):
-    """Closest valid hit with a radius-0.5 sphere.
+def _trace(rays_o, rays_d, r: float):
+    """Closest valid hit with the sphere of radius r at the origin.
     Returns (hit mask, hit points, normals) — all [N, ...]."""
-    r = SPHERE_RADIUS
     b = np.sum(rays_o * rays_d, axis=-1)
     c = np.sum(rays_o * rays_o, axis=-1) - r * r
     disc = b * b - c
@@ -347,6 +358,7 @@ def generate_scene(
     H: int = 600,
     W: int = 800,
     focal: float = 900.0,
+    radius: float = SPHERE_RADIUS,
 ) -> None:
     """Ray-trace and write an IDR-layout scene directory."""
     if kind not in ("sphere", "garment"):
@@ -386,7 +398,7 @@ def generate_scene(
             normals = np.concatenate(ns)
             color = _shade_garment(pts, normals, rays_o, rays_d, hit)
         else:
-            hit, pts, normals = _trace(rays_o, rays_d, kind)
+            hit, pts, normals = _trace(rays_o, rays_d, radius)
             color = _shade(pts, normals, rays_o, rays_d, hit)
 
         img = (color.reshape(H, W, 3) * 255.0).clip(0, 255).astype(np.uint8)

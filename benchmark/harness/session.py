@@ -28,6 +28,18 @@ for it, the fused distance op timed on its own (``Context.fd_op_ms``).
 
 Once the window has closed and the peak memory is read, the port's state
 is freed and the plain reference follows the first steps.
+
+A workload whose file gives ``"scans": S`` (a ``stage1`` cell) is a
+campaign: S scans trained as one graph by the port's ``MultiScanRunner``,
+scan i as its ``Runner(seed + i)``, on the scene of the file's ``scenes[i]``
+(the configuration's scene with that entry's keys, such as a ``radius``).
+Scan i starts from ``init_weights(cfg, seed + i)`` with a zero Adam state,
+draws from a stream of its own, and takes its views in the order of
+RandomState(i), as the runner orders them. The first window runs through
+the runner's own ``MultiScanWindow``; a step of the measured window is one
+iteration of every scan, and failed where a scan's row is missing or its
+loss is not finite, or where K1 or K2 did not launch S times. The reference
+follows each scan on its own (``check.compare_scans``).
 """
 
 from __future__ import annotations
@@ -79,10 +91,12 @@ def overrides(exp_dir: str, data_dir: str) -> Dict[str, Any]:
             "dataset__data_dir": data_dir}
 
 
-def image_indices(n_img: int, start: int, k: int) -> np.ndarray:
+def image_indices(n_img: int, start: int, k: int,
+                  rng: Optional[np.random.RandomState] = None) -> np.ndarray:
     """The views of iterations start .. start + k - 1 in ``Runner.train``'s
-    order: permutations of RandomState(0), one per pass over the views."""
-    rng = np.random.RandomState(0)
+    order: permutations of ``rng`` (a fresh RandomState(0) unless given; a
+    campaign's scan i takes RandomState(i)), one per pass over the views."""
+    rng = np.random.RandomState(0) if rng is None else rng
     perm = rng.permutation(n_img)
     for _ in range(start // n_img):
         perm = rng.permutation(n_img)
@@ -120,7 +134,9 @@ class Snapshots:
     """The draws of a window, handed to ``TrainWindow`` as its ``noise``.
     The window asks for step i's draws just before it runs step i, so that
     is where the state after the steps before it is copied: the first
-    moments after step 1 and the parameters after step ``check.FOLLOW``."""
+    moments after step 1 and the parameters after step ``check.FOLLOW``.
+    Every ask copies again, so the last ask before step i runs is the copy
+    that stays."""
 
     def __init__(self, draws, params, opt_state):
         self.draws, self.params, self.opt_state = draws, params, opt_state
@@ -137,17 +153,47 @@ class Snapshots:
         return self.draws[i]
 
 
+class ScanSnapshots:
+    """The draws of a campaign's window, ``noise[j][i]`` (scan i, step j),
+    handed to ``MultiScanWindow``: scan i's ``Snapshots``. The window first
+    reads every step's draws to check their shapes, and then step j's again
+    just before it runs step j; that last read makes the copies that stay."""
+
+    def __init__(self, scans: List[Snapshots]):
+        self.scans = scans
+
+    def __len__(self):
+        return len(self.scans[0])
+
+    def __getitem__(self, j):
+        return [s[j] for s in self.scans]
+
+
 # ----------------------------------------------------------------------------
 # the port's side
 # ----------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class Setup:
-    runner: Any
+    runner: Any  # a Runner, or a campaign's MultiScanRunner
     cfg: Any
-    first: Dict[str, Any]  # what the reference follows
-    scene_dir: Path
+    firsts: List[Dict[str, Any]]  # what the reference follows, one a scan
+    scene_dirs: List[Path]  # one a scan
     reference_s: float = 0.0  # seconds of the reference's steps that made the start
+
+    @property
+    def first(self) -> Dict[str, Any]:
+        """The first scan's (a one-scan cell's only)."""
+        return self.firsts[0]
+
+    @property
+    def scene_dir(self) -> Path:
+        return self.scene_dirs[0]
+
+
+def scans(wl) -> int:
+    """Scans a workload trains at once: its ``scans``, 1 unless given."""
+    return int(wl.get("scans", 1))
 
 
 def _load_cfg(conf: Path, exp_dir: str, data_dir: str, extra=None):
@@ -226,6 +272,8 @@ def build(cell: cells.Cell, seed: int, device, exp_dir: str, dataset=None,
     from neuraludf_tpu_torch.train.runner import Runner
 
     wl = cell.workload
+    if scans(wl) > 1:
+        return build_campaign(cell, seed, device, exp_dir, cache, extra)
     spec = scene_spec(cell.conf_path)
     scene_dir, _ = scene.ensure_scene(spec, cache)
     cfg = _load_cfg(cell.conf_path, exp_dir, str(scene_dir), extra)
@@ -254,7 +302,92 @@ def build(cell: cells.Cell, seed: int, device, exp_dir: str, dataset=None,
     _seed_state(runner, start)
     runner.end_iter = runner.iter_step  # train() runs only what the caller asks for
     first = first_window(runner, seed, start)
-    return Setup(runner, cfg, first, scene_dir, reference_s)
+    return Setup(runner, cfg, [first], [scene_dir], reference_s)
+
+
+SCAN_STREAM = 2 ** 40  # times scan i, added to the seed for the draws of a campaign's scan i
+
+
+def scan_specs(cell: cells.Cell) -> List[Dict[str, Any]]:
+    """A campaign's scenes: the configuration's scene with each entry of the
+    workload's ``scenes`` laid over it, one a scan."""
+    spec, entries = scene_spec(cell.conf_path), cell.workload["scenes"]
+    if len(entries) != scans(cell.workload):
+        raise ValueError(f"{cell.name}: {len(entries)} scenes for {scans(cell.workload)} scans")
+    return [{**spec, **e} for e in entries]
+
+
+def build_campaign(cell: cells.Cell, seed: int, device, exp_dir: str,
+                   cache: Path = scene.CACHE, extra=None) -> Setup:
+    """A campaign's set-up up to and including its first window (module
+    docstring): the port's ``MultiScanRunner`` over the scans' scenes, each
+    scan handed its seeded start."""
+    from neuraludf_tpu_torch.parallel.multi_scan import MultiScanRunner
+
+    wl = cell.workload
+    if wl["stage"] != "stage1":
+        raise ValueError(f"{cell.name}: a campaign of stage {wl['stage']!r}; only stage1 is built")
+    dirs = [scene.ensure_scene(spec, cache)[0] for spec in scan_specs(cell)]
+    if len(set(dirs)) != len(dirs):
+        raise ValueError(f"{cell.name}: two scans on one scene; each writes its own log there")
+    cfg = _load_cfg(cell.conf_path, exp_dir, str(dirs[0]), extra)
+    ref_cfg = ref_config.load(str(cell.conf_path), **overrides(exp_dir, str(dirs[0])))
+    runner = MultiScanRunner(cfg, [str(d) for d in dirs], out_dir=exp_dir, seed=seed,
+                             device=device, **runner_flags(wl))
+    starts = []
+    for i, scan in enumerate(runner.scans):
+        starts.append({"params": init_weights(cfg, seed + i, device), "opt": None,
+                       **initial_trainability(ref_cfg)})
+        _seed_state(scan, starts[-1])
+    runner.end_iter = runner.iter_step  # train() runs only what the caller asks for
+    return Setup(runner, cfg, campaign_window(runner, seed, starts), dirs)
+
+
+def campaign_window(runner, seed: int, starts: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """A campaign's first window from the benchmark's starts, through the
+    runner's own ``MultiScanWindow`` on draws made from the seed (scan i's
+    from ``seed + i * SCAN_STREAM``) and on each scan's views; returns what
+    the reference follows, one a scan."""
+    from neuraludf_tpu_torch.train import schedules as port_sched
+    from neuraludf_tpu_torch.train.step import METRIC_KEYS
+
+    k = runner.scans[0]._window_size()
+    if k != WINDOW:
+        raise ValueError(f"the runner's window is {k} iterations, the benchmark's {WINDOW}")
+    dev = runner.device
+    start_iter = runner.iter_step
+    scheds, rows = runner._schedule_rows(k)
+    blending = port_sched.is_blending(scheds[0][0])
+    if blending != port_sched.is_blending(scheds[-1][0]):
+        raise ValueError("blending switches inside the first window")
+    window_fn = runner._get_window_fn(blending, k)
+    if window_fn.unroll != 1:
+        raise ValueError(f"a unit of {window_fn.unroll} steps: the snapshots need one a unit")
+    idxs, draws, snaps, state0 = [], [], [], []
+    for i, scan in enumerate(runner.scans):
+        idxs.append(image_indices(scan.dataset.n_images, start_iter, k,
+                                  np.random.RandomState(i)))
+        draws.append(make_draws(scan.cfg, scan.dataset.scene["images"].shape[:3], k,
+                                seed + i * SCAN_STREAM, dev))
+        snaps.append(Snapshots(draws[i], scan.params, scan.opt_state))
+        state0.append({"p0": check.snapshot_params(scan.params),
+                       "m0": check.moments(scan.opt_state), "start": starts[i]})
+    mat = window_fn([s.params for s in runner.scans], [s.opt_state for s in runner.scans],
+                    [s.dataset.scene for s in runner.scans],
+                    torch.from_numpy(np.stack(idxs, axis=1)).to(dev),
+                    [s.generator for s in runner.scans], rows, noise=ScanSnapshots(snaps))
+    runner.iter_step += k
+    for scan in runner.scans:
+        scan.iter_step = runner.iter_step
+    rows_n = mat[:check.FOLLOW].cpu().tolist()  # [FOLLOW][S][M]
+    out = []
+    for i in range(len(runner.scans)):
+        terms = [dict(zip(METRIC_KEYS, step[i])) for step in rows_n]
+        out.append({**state0[i], "m1": snaps[i].m1, "pN": snaps[i].pN,
+                    "losses": [t["loss"] for t in terms], "terms": terms,
+                    "start_iter": start_iter, "idxs": idxs[i][:check.FOLLOW],
+                    "draws": draws[i][:check.FOLLOW], "blending": blending})
+    return out
 
 
 def runner_flags(wl) -> Dict[str, Any]:
@@ -287,33 +420,41 @@ def launch_counts() -> Dict[str, int]:
             "K3": strip_sample.strip_sample.launches}
 
 
-def window_rows(runner, first_iter: int, last_iter: int) -> List[Dict[str, float]]:
-    """The metric rows ``Runner.train`` logged for iterations first..last."""
-    path = Path(runner.base_exp_dir) / "logs" / "metrics.jsonl"
-    rows = {}
-    with open(path) as f:
-        for line in f:
-            row = json.loads(line)
-            if first_iter <= row["iter"] <= last_iter:
-                rows[row["iter"]] = row
-    return [rows.get(i) for i in range(first_iter, last_iter + 1)]
+def window_rows(runner, first_iter: int, last_iter: int) -> List[List[Optional[Dict]]]:
+    """The metric rows ``Runner.train`` logged for iterations first..last
+    (each scan of a ``MultiScanRunner`` in its own log): one list a step,
+    one row a scan, None where a row is missing."""
+    by_scan = []
+    for scan in getattr(runner, "scans", [runner]):
+        rows = {}
+        with open(Path(scan.base_exp_dir) / "logs" / "metrics.jsonl") as f:
+            for line in f:
+                row = json.loads(line)
+                if first_iter <= row["iter"] <= last_iter:
+                    rows[row["iter"]] = row
+        by_scan.append([rows.get(i) for i in range(first_iter, last_iter + 1)])
+    return [list(step) for step in zip(*by_scan)]
 
 
-def failed_steps(rows, launched: Dict[str, int], blending: bool, on_card: bool) -> List[str]:
-    """Why steps of the window failed: a missing row, a non-finite loss, a
-    blending step with a zero pixel or patch term, a kernel that did not
-    launch once a step (on the card)."""
+def failed_steps(rows, launched: Dict[str, int], blending: bool, on_card: bool,
+                 n_scans: int = 1) -> List[str]:
+    """Why steps of the window failed: a scan's row missing or with a
+    non-finite loss, a blending step with a zero pixel or patch term, a
+    kernel that did not launch once a step of each scan (on the card)."""
     why = []
     n = len(rows)
-    bad = [i for i, r in enumerate(rows) if r is None or not math.isfinite(r["loss"])]
+    bad = [i for i, step in enumerate(rows)
+           if any(r is None or not math.isfinite(r["loss"]) for r in step)]
     if bad:
         why.append(f"{len(bad)} steps without a finite loss")
     if blending:
-        dead = [i for i, r in enumerate(rows) if r is not None
-                and (r["color_pixel_loss"] == 0.0 or r["color_patch_loss"] == 0.0)]
+        dead = [i for i, step in enumerate(rows) if any(
+            r is not None and (r["color_pixel_loss"] == 0.0 or r["color_patch_loss"] == 0.0)
+            for r in step)]
         if dead:
             why.append(f"{len(dead)} blending steps with a zero pixel or patch term")
     if on_card:
+        n *= n_scans
         want = {"K1": n, "K2": n, "K3": n if blending else 0}
         for k, v in want.items():
             if launched[k] != v:

@@ -1,6 +1,7 @@
 """kernels_per_step (layer: training window): device operations a replayed
-step runs (kernels, and the copies and fills the device runs), counted by
-torch.profiler over the traced windows of Runner.train. Fusing the
+step runs (kernels, and the copies and fills the device runs; in a
+campaign a step is an iteration of every scan), counted by torch.profiler
+over the traced windows of Runner.train (MultiScanRunner.train). Fusing the
 renderer's chain and the casts lowers it."""
 
 

@@ -81,8 +81,10 @@ def tiny_conf(name, *, kind="sphere", outside=4, up="classical", finetune=False,
 
 def write_tiny_bench(root: Path) -> Path:
     """A benchmark folder under ``root`` with the tiny cells ``tiny.stage1``,
-    ``tinyg.stage1`` (garment kind, mix up-sampling, no background) and
-    ``tiny.finetune``, and the real metric readers; returns it."""
+    ``tinyg.stage1`` (garment kind, mix up-sampling, no background),
+    ``tiny.finetune`` and ``tiny.multiscan2`` (a campaign of two scans on
+    spheres of radius 0.5 and 0.4), and the real metric readers; returns
+    it."""
     here = root / "benchmark"
     (here / "configs").mkdir(parents=True)
     (here / "workloads").mkdir()
@@ -98,11 +100,13 @@ def write_tiny_bench(root: Path) -> Path:
                               "reg_weights_schedule": True},
              "tiny.finetune": {"config": "tiny", "conf": "tiny.finetune.conf",
                                "stage": "finetune", "setup_conf": "tiny.conf",
-                               "setup_steps": 50}}
+                               "setup_steps": 50},
+             "tiny.multiscan2": {"config": "tiny", "conf": "tiny.conf", "stage": "stage1",
+                                 "scans": 2, "scenes": [{"radius": 0.5}, {"radius": 0.4}]}}
     for name, wl in cells.items():
         (here / "workloads" / f"{name}.json").write_text(json.dumps({**wl, "limits": limits}))
     bench = json.loads((HERE.parent / "BENCHMARK.json").read_text())
-    bench["workloads"] = [{"name": n, "config": wl["config"], "traffic": wl["stage"],
+    bench["workloads"] = [{"name": n, "config": wl["config"], "traffic": n.split(".", 1)[1],
                            "chips": 1, "why": "tiny"} for n, wl in cells.items()]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return here

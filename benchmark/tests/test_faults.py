@@ -3,7 +3,7 @@ path sound and with faults planted underneath it: ``correct`` must come
 out true once and false for each fault a training cell can have (a step
 that leaves its state unchanged; half of the batch left out, the means
 taken over the rest; K2 returning one layer's weight cotangents doubled:
-``harness.faults``). The control, the plain reference in fp8 put in the
+``harness.faults``; a campaign's own faults are in ``test_multiscan.py``). The control, the plain reference in fp8 put in the
 port's place, must fail the tiny cell's limits as well. One chip's cells
 have no exchange between chips, and a training step no token, to alter."""
 
@@ -51,14 +51,17 @@ def test_a_k2_layer_fault_is_caught(tiny_bench, tmp_path, monkeypatch, name):
     assert res["checks"]["udf_grad_gap"]["value"] >= 0.1
 
 
-@pytest.mark.parametrize("name", ["tiny.stage1", "tinyg.stage1", "tiny.finetune"])
+@pytest.mark.parametrize("name", ["tiny.stage1", "tinyg.stage1", "tiny.finetune",
+                                  "tiny.multiscan2"])
 def test_the_control_fails(tiny_bench, tmp_path, name):
     cell = cells.load_cell(name, here=tiny_bench)
     dev = torch.device("cpu")
     setup = session.build(cell, 2**31 + 12, dev, str(tmp_path), cache=tmp_path / "scenes")
-    first = setup.first
-    ref = session.reference_side(cell, first, setup.scene_dir, dev, str(tmp_path))
-    ctl = session.reference_side(cell, first, setup.scene_dir, dev, str(tmp_path),
-                                 rounding=faults.CONTROL)
-    assert set(check.compare(session.program_side(first), ref).values()) == {0.0}
-    assert not check.judge(check.compare(ctl, ref), cell.workload["limits"])
+    refs, ctls = [], []
+    for first, scene_dir in zip(setup.firsts, setup.scene_dirs):
+        refs.append(session.reference_side(cell, first, scene_dir, dev, str(tmp_path)))
+        ctls.append(session.reference_side(cell, first, scene_dir, dev, str(tmp_path),
+                                           rounding=faults.CONTROL))
+    ports = [session.program_side(f) for f in setup.firsts]
+    assert set(check.compare_scans(ports, refs)[0].values()) == {0.0}
+    assert not check.judge(check.compare_scans(ctls, refs)[0], cell.workload["limits"])

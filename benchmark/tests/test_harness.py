@@ -17,9 +17,9 @@ def test_real_cells_load_by_name():
         cell = cells.load_cell(w["name"], bench)
         assert cell.conf_path.is_file() and cell.config == w["config"]
         assert {m.name for m in cell.end_to_end} == {"rays_per_s", "peak_mem_gib", "setup_s"}
-        assert {m.name for m in cell.per_layer} == {
-            "kernels_per_step", "device_idle_share", "step_mfu", "fd_fwd_roofline",
-            "fd_bwd_roofline"}
+        listed = {m["name"] for m in bench["per_layer"] if w["name"] in m["workloads"]}
+        assert {m.name for m in cell.per_layer} == listed
+        assert {"kernels_per_step", "device_idle_share", "step_mfu"} <= listed
         for m in cell.end_to_end + cell.per_layer:
             assert callable(cells.load_reader(m.name).read)
     for c in bench["configs"]:

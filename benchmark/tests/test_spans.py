@@ -202,6 +202,9 @@ def test_the_new_metrics_are_appended_with_their_cells():
     for w in bench["workloads"]:
         cell = cells.load_cell(w["name"], bench)
         got = [m.name for m in cell.per_layer][5:]
+        if cell.workload.get("scans", 1) > 1:  # MultiScanRunner.train has no runner.* spans
+            assert got == []
+            continue
         assert got == [n for n in NEW if n != "k3_path_ms" or w["name"] == "dtu.finetune"]
         for n in got:
             assert callable(cells.load_reader(n).read)
