@@ -25,9 +25,9 @@ judged); a cell's ``limits`` name those it compares:
   of the reference leaf's norm and the median leaf's; the median over the
   leaves;
 * ``udf_grad_gap``: the same gap of the first gradient per layer of the
-  distance network (a layer's ``v``, ``g`` and ``b`` together: the weight
-  cotangents that K2 writes), over the larger of the reference layer's
-  norm and the median layer's; the worst layer. The median over all
+  distance network (the model's ``DISTANCE_NET``; a layer's ``v``, ``g``
+  and ``b`` together: the weight cotangents that K2 writes), over the
+  larger of the reference layer's norm and the median layer's; the worst layer. The median over all
   leaves cannot see K2 alone: its leaves are under half of them in a DTU
   cell, and a layer's leaves together are steadier than its smallest one;
 * ``change_gap``: the same gap for the norm of each leaf's change over the
@@ -39,6 +39,11 @@ norm's scale of the distance head, whose gradient is a cancelling sum; the
 background NeRF where its density sits at ReLU's threshold), and so are
 the loss's discrete choices in a blending step; ``PERF.md`` gives those
 readings.
+
+A cell whose measured window runs the runner's periodic actions adds the
+numbers of that crossing (``crossing_numbers``): the meshes'
+(``harness.meshes``: ``mesh_gap``, ``udf_mesh_gap``) and the validation
+image's (``harness.images``: ``image_gap``).
 
 Leaves whose reference gradient is under a thousandth of the median
 leaf's (those Adam moves by round-off alone, or that are not trained) are
@@ -55,7 +60,6 @@ import torch
 FOLLOW = 3  # steps the reference follows
 BETA1 = 0.9  # Adam's first-moment decay, as the configuration's optimizer has it
 NOUGHT = 1e-3  # a leaf's gradient under this share of the median leaf's counts as nought
-UDF = "udf"  # the distance network's subtree: its layers are what K2 writes
 
 
 def flat_leaves(tree, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
@@ -130,21 +134,25 @@ def leaf_gaps(side: Dict[str, object], ref: Dict[str, object], top: int = 6) -> 
     return out
 
 
-def layer_norms(grads: Dict[tuple, float]) -> Dict[tuple, float]:
-    """The norm of each distance-network layer's gradient, from its leaves'
-    norms (the norm of the leaves together)."""
+def layer_norms(grads: Dict[tuple, float], net: str) -> Dict[tuple, float]:
+    """The norm of each layer's gradient of the network ``net`` (a subtree
+    of the parameters), from its leaves' norms (the norm of the leaves
+    together)."""
     out: Dict[tuple, float] = {}
     for path, v in grads.items():
-        if path[0] == UDF:
+        if path[0] == net:
             out[path[:2]] = out.get(path[:2], 0.0) + v * v
     return {k: v ** 0.5 for k, v in out.items()}
 
 
-def compare(side: Dict[str, object], ref: Dict[str, object]) -> Dict[str, float]:
-    """The seven numbers (module docstring) of ``side`` against ``ref``."""
+def compare(side: Dict[str, object], ref: Dict[str, object], model) -> Dict[str, float]:
+    """The seven numbers (module docstring) of ``side`` against ``ref``; the
+    model (``models/<m>.py``) names the step's terms (``TERMS``) and the
+    distance network (``DISTANCE_NET``)."""
     lg = max(_gap(a, b, 0.0) for a, b in zip(side["losses"], ref["losses"]))
+    keys = [model.TERMS[n] for n in ("eikonal_gap", "udf_gap", "color_gap")]
     eik, udf, col = (max(_gap(s[key], r[key], 0.0) for s, r in zip(side["terms"], ref["terms"]))
-                     for key in ("gradient_error", "udf_mean", "color_loss"))
+                     for key in keys)
     if any(v != v for v in side["losses"]):  # a NaN loss is never close
         lg = eik = udf = col = float("inf")
     g_ref, c_ref = ref["grads"], ref["change"]
@@ -154,21 +162,36 @@ def compare(side: Dict[str, object], ref: Dict[str, object]) -> Dict[str, float]
     moved = [k for k in kept if c_ref[k] > 0.0]
     c_med = _median([c_ref[k] for k in moved])
     cg = _median([_gap(side["change"][k], c_ref[k], c_med) for k in moved])
-    l_ref, l_side = layer_norms(g_ref), layer_norms(side["grads"])
+    net = model.DISTANCE_NET
+    l_ref, l_side = layer_norms(g_ref, net), layer_norms(side["grads"], net)
     l_med = _median(l_ref.values())
     ug = max((_gap(l_side[k], l_ref[k], l_med) for k in l_ref), default=0.0)
     return {"loss_gap": lg, "eikonal_gap": eik, "udf_gap": udf, "color_gap": col,
             "grad_gap": gg, "udf_grad_gap": ug, "change_gap": cg}
 
 
-def compare_scans(sides, refs) -> Tuple[Dict[str, float], Dict[str, int]]:
+def compare_scans(sides, refs, model) -> Tuple[Dict[str, float], Dict[str, int]]:
     """The seven numbers of each scan's side against its reference, and of
     each number the worst scan's value (the largest; NaN is worst) and that
     scan's index."""
-    per = [compare(s, r) for s, r in zip(sides, refs)]
+    per = [compare(s, r, model) for s, r in zip(sides, refs)]
     rank = lambda v: float("inf") if v != v else v
     worst = {k: max(range(len(per)), key=lambda i: rank(per[i][k])) for k in per[0]}
     return {k: per[i][k] for k, i in worst.items()}, worst
+
+
+def crossing_numbers(model, cfg, event, scene_dir, device) -> Dict[str, float]:
+    """The numbers of one crossing (an event of ``session.Periodic``): the
+    meshes' where it wrote meshes, the validation image's where it rendered
+    one."""
+    from . import images, meshes
+
+    out: Dict[str, float] = {}
+    if "val_mesh_freq" in event["hits"]:
+        out.update(meshes.gaps(model, cfg, event, scene_dir, device))
+    if "val_freq" in event["hits"]:
+        out.update(images.gaps(model, cfg, event, scene_dir, device))
+    return out
 
 
 def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:

@@ -10,9 +10,14 @@ every scan), ``failed`` (those of them that failed),
 per-layer ones), ``device``, with ``--trace 1`` a ``breakdown``, and last
 ``checks``, each number compared beside its limit, which also end standard
 error (in a campaign each number's worst scan, which ``readings`` names
-under ``worst_scan``). Without a CUDA device, or with fewer than the cell
-asks for, it exits with 2 and prints no result; with JAX or the JAX package in
-``sys.modules`` once the window has closed, it exits with 3 and names them.
+under ``worst_scan``; where the window ran the runner's periodic actions,
+the numbers of that crossing too, ``check.crossing_numbers``). With
+``--trace 1`` a cell with a crossing runs the runner's periodic actions
+once more after the traced windows, each action under a profiler of its
+own (``profile_crossing``). Without a CUDA device, or
+with fewer than the cell asks for, it exits with 2 and prints no result;
+with JAX or the JAX package in ``sys.modules`` once the window has closed,
+it exits with 3 and names them.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from . import cells, check, counts, session, trace as trace_mod
+from . import cells, check, session, trace as trace_mod
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "neuraludf_tpu")
 FD_REPS = 50  # warm launches a timing of the fused distance op averages
@@ -61,16 +66,23 @@ def power_limit() -> Optional[str]:
 
 
 class Context:
-    """What the metric readers read: the measured window, the trace, the
-    cell's configuration; ``fd_op_ms`` times the fused distance op on its
-    own once, at first use."""
+    """What the metric readers read: the measured window (``window``; the
+    seconds from its start at which each runner window ended, ``ends``, and
+    whether each ran the runner's periodic actions, ``crossed``), the trace,
+    the profiled crossing (``crossing``, ``profile_crossing``'s; None where
+    there is none), the cell's configuration and model (``models/<m>.py``);
+    ``fd_op_ms`` times the fused distance op on its own once, at first
+    use."""
 
     def __init__(self, cell, cfg, runner, window: Dict[str, float], setup_s: float,
                  peak_bytes: int, summary: Optional[trace_mod.TraceSummary],
-                 profiled_steps: int, seed: int):
+                 profiled_steps: int, seed: int, model, ends: List[float],
+                 crossed: List[bool], crossing: Optional[Dict[str, Dict[str, float]]] = None):
         self.cell, self.cfg, self.runner = cell, cfg, runner
         self.window, self.setup_s, self.peak_bytes = window, setup_s, peak_bytes
         self.trace, self.profiled_steps, self.seed = summary, profiled_steps, seed
+        self.model, self.ends, self.crossed = model, ends, crossed
+        self.crossing = crossing
         self._fd = None
 
     @property
@@ -86,13 +98,13 @@ class Context:
         if self._fd is None:
             from neuraludf_tpu_torch.ops import fused_distance as fd
 
-            u = self.cfg.model.udf_network
-            rows = counts.fd_rows(self.cfg)
+            u = self.model.distance_cfg(self.cfg)
+            rows = self.model.fd_rows(self.cfg)
             dev = self.runner.device
             gen = torch.Generator(device=dev).manual_seed(self.seed + 7)
             x = (torch.rand((rows, 3), generator=gen, device=dev) * 2.0 - 1.0) * 0.9
             params = {k: {n: t.detach().clone().requires_grad_(True) for n, t in v.items()}
-                      for k, v in self.runner.params["udf"].items()}
+                      for k, v in self.runner.params[self.model.DISTANCE_NET].items()}
             leaves = [t for v in params.values() for t in v.values()]
             cot = [torch.randn((rows, 1), generator=gen, device=dev),
                    torch.randn((rows, u.d_out - 1), generator=gen, device=dev),
@@ -145,19 +157,22 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
     with tempfile.TemporaryDirectory(prefix="udfbench-") as exp_dir:
         setup = session.build(cell, seed, device, exp_dir,
                               cache=session.scene.CACHE if cache is None else cache)
-        runner = setup.runner
+        runner, periodic = setup.runner, setup.periodic
         on_card = device.type == "cuda"
         session.train_windows(runner, 1)  # warms Runner.train's host loop
         _sync(device)
         setup_s = time.time() - t_start - setup.reference_s  # the start's reference steps
 
+        in_setup = len(periodic.events)
         before = session.launch_counts()
         first_iter = runner.iter_step + 1
         t0 = time.time()
-        ends = []
+        ends, crossed = [], []
         while True:
+            seen = len(periodic.events)
             session.train_windows(runner, 1)
             ends.append(time.time() - t0)
+            crossed.append(len(periodic.events) > seen)
             if ends[-1] >= seconds:
                 break
         _sync(device)
@@ -169,18 +184,26 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
         after = session.launch_counts()
         steps = n * session.WINDOW
         peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-        launched = {k: after[k] - before[k] for k in after}
+        in_window = periodic.launched(in_setup)  # the periodic actions' renders and grids
+        launched = {k: after[k] - before[k] - in_window[k] for k in after}
         rows = session.window_rows(runner, first_iter, runner.iter_step)
         n_scans = session.scans(cell.workload)
         why = session.failed_steps(rows, launched, setup.first["blending"], on_card, n_scans)
-        failed = steps if why else 0
+        why += crossing_faults(periodic, in_setup, cell.workload)
+        timed_events = len(periodic.events)
         window = {"steps": steps, "seconds": elapsed,
                   "rays": steps * n_scans * setup.cfg.train.batch_size}
 
-        summary, profiled, traced_s = None, 0, None
+        summary, profiled, traced_s, crossing = None, 0, None, None
         if trace:
             summary, profiled, traced_s = profile(runner)
-        ctx = Context(cell, setup.cfg, runner, window, setup_s, peak, summary, profiled, seed)
+        if len(periodic.events) > timed_events:
+            why.append(f"{periodic.windows(timed_events)} traced windows ran periodic actions")
+        if trace and timed_events > in_setup:
+            crossing = profile_crossing(runner, periodic.events[in_setup]["iter"],
+                                        os.path.join(exp_dir, "profiled"), device)
+        ctx = Context(cell, setup.cfg, runner, window, setup_s, peak, summary, profiled, seed,
+                      setup.model, ends, crossed, crossing)
         wanted = cell.per_layer if trace else cell.end_to_end
         metrics = {}
         for m in wanted:
@@ -188,8 +211,9 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
             if value is not None:
                 metrics[m.name] = {"value": value, "unit": m.unit}
         del ctx
+        failed = steps if why else 0
 
-        firsts, scene_dirs = setup.firsts, setup.scene_dirs
+        firsts, scene_dirs, model = setup.firsts, setup.scene_dirs, setup.model
         port_sides = [session.program_side(f) for f in firsts]
         del setup, runner
         gc.collect()
@@ -198,7 +222,10 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
         session.tf32_off()
         refs = [session.reference_side(cell, f, d, device, exp_dir)
                 for f, d in zip(firsts, scene_dirs)]
-    numbers, worst = check.compare_scans(port_sides, refs)
+        made = crossing_readings(cell, model, periodic.events[in_setup:timed_events],
+                                 scene_dirs[0], device, exp_dir)
+    numbers, worst = check.compare_scans(port_sides, refs, model)
+    numbers.update(made)
     limits = cell.workload["limits"]
     correct = check.judge(numbers, limits) and not why
     result = {"correct": bool(correct), "attempted": steps, "failed": failed,
@@ -209,10 +236,40 @@ def measure(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
     result["readings"] = {k: v for k, v in numbers.items() if k not in limits}
     if len(refs) > 1:
         result["readings"]["worst_scan"] = worst
-    result["checks"] = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
+    result["checks"] = {k: {"value": numbers.get(k), "limit": limits[k]} for k in limits}
     if why:
         result["checks"]["failed_steps"] = {"value": failed, "limit": 0, "why": why}
     return result
+
+
+def crossing_readings(cell, model, events, scene_dir, device, exp_dir: str) -> Dict[str, float]:
+    """The numbers of the measured window's crossing
+    (``check.crossing_numbers``; a cell holds one at most, ``session.build``);
+    {} where it ran none."""
+    if not events:
+        return {}
+    cfg = model.load_config(cell.conf_path, **session.overrides(exp_dir, str(scene_dir)))
+    with session.exact_f32():
+        return check.crossing_numbers(model, cfg, events[0], scene_dir, device)
+
+
+def crossing_faults(periodic, in_setup: int, wl) -> List[str]:
+    """What is wrong with the periodic actions of a run (``session.Periodic``)
+    up to the measured window's end: any in set-up; in the measured window
+    another number of runner windows with them than the workload's
+    ``crossings``; an error the port logged in them. Each is printed."""
+    for e in periodic.events:
+        print(f"periodic actions at iteration {e['iter']}: {', '.join(e['hits'])}, "
+              f"{e['seconds']:.3f} s, {e['errors']} errors", file=sys.stderr)
+    why = []
+    if in_setup:
+        why.append(f"set-up ran periodic actions ({in_setup} calls)")
+    n, want = periodic.windows(in_setup), session.crossings(wl)
+    if n != want:
+        why.append(f"{n} windows of the measured window ran periodic actions, not {want}")
+    if periodic.errors():
+        why.append(f"the periodic actions logged {periodic.errors()} errors")
+    return why
 
 
 def profile(runner):
@@ -228,6 +285,50 @@ def profile(runner):
         traced_s = time.time() - t0
     summary = trace_mod.summarize(prof.events())
     return summary, session.PROFILE_WINDOWS * session.WINDOW, traced_s
+
+
+def profile_crossing(runner, it: int, out_dir: str, device) -> Dict[str, Dict[str, float]]:
+    """The runner's periodic actions once more, as at iteration ``it`` (the
+    measured window's crossing; the state is the one after the traced
+    windows), writing under ``out_dir``, each of its actions
+    (``session.ACTIONS``) under a ``torch.profiler`` of its own: for each
+    action that ran, its host seconds (synchronized at both ends), its
+    device operations (``ops``) and its device seconds, the union of their
+    intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    out: Dict[str, Dict[str, float]] = {}
+
+    def profiled(name, method):
+        def call(*args, **kwargs):
+            _sync(device)
+            activities = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+            with torch_profile(activities=activities) as prof:
+                t0 = time.time()
+                result = method(*args, **kwargs)
+                _sync(device)
+                host_s = time.time() - t0
+            ivs = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            out[name] = {"host_s": host_s, "ops": len(ivs),
+                         "device_s": trace_mod.union_length(ivs) / 1e6}
+            return result
+
+        return call
+
+    saved = runner.iter_step, runner.base_exp_dir
+    for name in session.ACTIONS:
+        setattr(runner, name, profiled(name, getattr(runner, name)))
+    runner.iter_step, runner.base_exp_dir = it, out_dir
+    try:
+        runner._periodic_actions(session.WINDOW)
+    finally:
+        runner.iter_step, runner.base_exp_dir = saved
+        for name in session.ACTIONS:
+            delattr(runner, name)  # the class's methods again
+    return out
 
 
 def device_info(device, peak: int, summary, traced_s) -> Dict[str, Any]:

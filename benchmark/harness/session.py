@@ -1,9 +1,18 @@
 """One run of one cell: set-up, the measured window, the trace, the check.
 
+Whatever belongs to the cell's model (the plain reference, the seeded
+weights and draws, the schedule rows, the counts) comes from its module,
+``models/<m>.py``, found by the name its configuration gives
+(``models.for_cell``).
+
 Set-up loads the frozen configuration through the port's ``config.load``,
 writes the scene once (``scene.ensure_scene``), builds the port's
 ``Runner`` and hands it the start the benchmark made from the seed: in a
-``stage1`` cell the seeded weights (``weights``) and a zero Adam state; in
+``stage1`` cell the seeded weights (the model's ``init_weights``) and a
+zero Adam state, at iteration ``start_iter`` (the workload's; 0 unless
+given: the schedules and the views start there, the state is the seeded
+one all the same; ``fixed_init_seed`` draws every network from one
+fixed seed, the same in every run, ``seeded_weights``); in
 a ``finetune`` cell the state after ``setup_steps`` stage-1 iterations of
 the plain reference from those weights (``reference_start``: parameters,
 Adam state and the beta/variance trainability, on draws from the seed, in
@@ -20,7 +29,12 @@ The measured window runs whole windows of ``Runner.train`` (``end_iter``
 advanced one window at a time) until ``seconds`` have passed, and is ended
 by a synchronize. Every step of it must have launched K1 and K2 once (and
 K3 once in a blending cell, with nonzero pixel and patch terms), and every
-loss must be finite; a step that did not is a failed one.
+loss must be finite; a step that did not is a failed one. The runner's
+periodic actions (a validation render, a checkpoint, the meshes, at
+multiples of their frequencies) are watched (``Periodic``): the measured
+window must hold exactly the workload's ``crossings`` runner windows that
+run them (0 unless given), set-up and the traced windows none, and none
+may log an error; their own launches of K1, K2 and K3 are not a step's.
 
 With ``trace`` two more windows run under ``torch.profiler``, and the
 per-layer readers read the trace, the measured window and, where they ask
@@ -48,25 +62,20 @@ import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import math
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-import reference.config as ref_config
+import models
 import reference.hocon as ref_hocon
-from reference.mlp import rounded
-from reference.optim import init_adam_state as ref_init_adam
-from reference.renderer import UDFRenderer as RefRenderer
-from reference.schedules import compute_step_schedules, schedule_rows
-from reference.step import build_step_body as ref_build_step_body
-from reference.dataset import load_scene
 
-from . import cells, check, scene
-from .weights import init_weights
+from . import cells, check, images, meshes, scene
 
 WINDOW = 50  # iterations a runner window holds (the runner's own choice, checked)
 PROFILE_WINDOWS = 2  # runner windows under the profiler in a traced run
@@ -106,27 +115,6 @@ def image_indices(n_img: int, start: int, k: int,
         out[j] = perm[step % n_img]
         if (step + 1) % n_img == 0:
             perm = rng.permutation(n_img)
-    return out
-
-
-def make_draws(cfg, n_views_hw, k: int, seed: int, device) -> List[Dict[str, torch.Tensor]]:
-    """k iterations' draws, in the shapes and types the port's window draws
-    them: pixels px, py [B] int64, the z jitter t_rand [B, 1] and the
-    outside jitter t_r [n_outside]."""
-    _, h, w = n_views_hw
-    b, r = cfg.train.batch_size, cfg.model.udf_renderer
-    gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
-    px = torch.randint(0, w, (k, b), generator=gen, device=device)
-    py = torch.randint(0, h, (k, b), generator=gen, device=device)
-    out = [{"px": px[j], "py": py[j]} for j in range(k)]
-    if r.perturb > 0:
-        t_rand = torch.rand((k, b, 1), generator=gen, device=device) - 0.5
-        t_r = (torch.rand((k, r.n_outside), generator=gen, device=device)
-               if r.n_outside > 0 else None)
-        for j in range(k):
-            out[j]["t_rand"] = t_rand[j]
-            if t_r is not None:
-                out[j]["t_r"] = t_r[j]
     return out
 
 
@@ -179,6 +167,8 @@ class Setup:
     cfg: Any
     firsts: List[Dict[str, Any]]  # what the reference follows, one a scan
     scene_dirs: List[Path]  # one a scan
+    model: ModuleType  # models/<m>.py
+    periodic: "Periodic"  # the runner's periodic actions, watched
     reference_s: float = 0.0  # seconds of the reference's steps that made the start
 
     @property
@@ -194,6 +184,18 @@ class Setup:
 def scans(wl) -> int:
     """Scans a workload trains at once: its ``scans``, 1 unless given."""
     return int(wl.get("scans", 1))
+
+
+def start_iter(wl) -> int:
+    """The iteration a workload's runner starts at: its ``start_iter``, 0
+    unless given."""
+    return int(wl.get("start_iter", 0))
+
+
+def crossings(wl) -> int:
+    """Runner windows of the measured window that must run the runner's
+    periodic actions: the workload's ``crossings``, 0 unless given."""
+    return int(wl.get("crossings", 0))
 
 
 def _load_cfg(conf: Path, exp_dir: str, data_dir: str, extra=None):
@@ -228,7 +230,7 @@ def _seed_state(runner, start: Dict[str, Any]) -> None:
     runner.variance_trainable = start["variance_trainable"]
 
 
-def first_window(runner, seed: int, start: Dict[str, Any]) -> Dict[str, Any]:
+def first_window(runner, seed: int, start: Dict[str, Any], model) -> Dict[str, Any]:
     """The runner's first window from the benchmark's ``start``, through its
     own ``TrainWindow`` on draws made from the seed; returns what the
     reference follows."""
@@ -239,13 +241,16 @@ def first_window(runner, seed: int, start: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError(f"the runner's window is {k} iterations, the benchmark's {WINDOW}")
     dev = runner.device
     start_iter = runner.iter_step
+    if periodic_hits(runner.cfg, start_iter + k, k):
+        raise ValueError(f"the first window ({start_iter} .. {start_iter + k}) would cross a "
+                         "periodic action, which it does not run")
     scheds = [runner._schedules_at(start_iter + j) for j in range(k)]
     blending = port_sched.is_blending(scheds[0])
     if blending != port_sched.is_blending(scheds[-1]):
         raise ValueError("blending switches inside the first window")
     idxs = image_indices(runner.dataset.n_images, start_iter, k)
     images = runner.dataset.scene["images"]
-    draws = make_draws(runner.cfg, images.shape[:3], k, seed, dev)
+    draws = model.make_draws(runner.cfg, images.shape[:3], k, seed, dev)
     state0 = {"p0": check.snapshot_params(runner.params), "m0": check.moments(runner.opt_state),
               "start": start}
     snaps = Snapshots(draws, runner.params, runner.opt_state)
@@ -272,18 +277,28 @@ def build(cell: cells.Cell, seed: int, device, exp_dir: str, dataset=None,
     from neuraludf_tpu_torch.train.runner import Runner
 
     wl = cell.workload
+    model = models.for_cell(cell)
+    if crossings(wl) > 1 or (crossings(wl) and scans(wl) > 1):
+        raise ValueError(f"{cell.name}: the harness checks one crossing of one scan")
+    if crossings(wl):  # what the periodic actions build at first use, built here
+        from neuraludf_tpu_torch.mesh import build as mesh_build
+        from neuraludf_tpu_torch.ops import build as ops_build
+
+        mesh_build.ensure_built()  # the meshes' host engine
+        if device.type == "cuda":
+            ops_build.compile_sources(["strip_sample"])  # K3, the validation render's blending
     if scans(wl) > 1:
         return build_campaign(cell, seed, device, exp_dir, cache, extra)
     spec = scene_spec(cell.conf_path)
     scene_dir, _ = scene.ensure_scene(spec, cache)
     cfg = _load_cfg(cell.conf_path, exp_dir, str(scene_dir), extra)
-    weights = init_weights(cfg, seed, device)
+    weights = seeded_weights(model, cfg, wl, seed, device)
     stage = wl["stage"]
     reference_s = 0.0
     if stage == "finetune":
         t0 = time.time()
-        start = reference_start(cell, weights, int(spec["views"]), scene_dir, device, exp_dir,
-                                seed)
+        start = reference_start(cell, model, weights, int(spec["views"]), scene_dir, device,
+                                exp_dir, seed)
         _sync(device)
         reference_s = time.time() - t0
         del weights
@@ -291,8 +306,8 @@ def build(cell: cells.Cell, seed: int, device, exp_dir: str, dataset=None,
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
     elif stage == "stage1":
-        ref_cfg = ref_config.load(str(cell.conf_path), **overrides(exp_dir, str(scene_dir)))
-        start = {"params": weights, "opt": None, **initial_trainability(ref_cfg)}
+        ref_cfg = model.load_config(cell.conf_path, **overrides(exp_dir, str(scene_dir)))
+        start = {"params": weights, "opt": None, **model.initial_trainability(ref_cfg)}
     else:
         raise ValueError(f"{cell.name}: unknown stage {stage!r}")
     if dataset is None:
@@ -300,9 +315,11 @@ def build(cell: cells.Cell, seed: int, device, exp_dir: str, dataset=None,
     runner = Runner(cfg, seed=seed, device=device, dataset=dataset,
                     is_finetune=stage == "finetune", **runner_flags(wl))
     _seed_state(runner, start)
+    runner.iter_step = start_iter(wl)  # the schedules and the views start there
     runner.end_iter = runner.iter_step  # train() runs only what the caller asks for
-    first = first_window(runner, seed, start)
-    return Setup(runner, cfg, [first], [scene_dir], reference_s)
+    first = first_window(runner, seed, start, model)
+    return Setup(runner, cfg, [first], [scene_dir], model,
+                 Periodic([runner], model, seed), reference_s)
 
 
 SCAN_STREAM = 2 ** 40  # times scan i, added to the seed for the draws of a campaign's scan i
@@ -317,6 +334,13 @@ def scan_specs(cell: cells.Cell) -> List[Dict[str, Any]]:
     return [{**spec, **e} for e in entries]
 
 
+def seeded_weights(model, cfg, wl, seed: int, device):
+    """The model's seeded weights; where the workload gives
+    ``fixed_init_seed``, every network is drawn from that seed instead, the
+    same in every run (the draws stay the run seed's)."""
+    return model.init_weights(cfg, int(wl.get("fixed_init_seed", seed)), device)
+
+
 def build_campaign(cell: cells.Cell, seed: int, device, exp_dir: str,
                    cache: Path = scene.CACHE, extra=None) -> Setup:
     """A campaign's set-up up to and including its first window (module
@@ -325,25 +349,30 @@ def build_campaign(cell: cells.Cell, seed: int, device, exp_dir: str,
     from neuraludf_tpu_torch.parallel.multi_scan import MultiScanRunner
 
     wl = cell.workload
+    model = models.for_cell(cell)
     if wl["stage"] != "stage1":
         raise ValueError(f"{cell.name}: a campaign of stage {wl['stage']!r}; only stage1 is built")
+    if start_iter(wl):
+        raise ValueError(f"{cell.name}: a campaign starts at iteration 0")
     dirs = [scene.ensure_scene(spec, cache)[0] for spec in scan_specs(cell)]
     if len(set(dirs)) != len(dirs):
         raise ValueError(f"{cell.name}: two scans on one scene; each writes its own log there")
     cfg = _load_cfg(cell.conf_path, exp_dir, str(dirs[0]), extra)
-    ref_cfg = ref_config.load(str(cell.conf_path), **overrides(exp_dir, str(dirs[0])))
+    ref_cfg = model.load_config(cell.conf_path, **overrides(exp_dir, str(dirs[0])))
     runner = MultiScanRunner(cfg, [str(d) for d in dirs], out_dir=exp_dir, seed=seed,
                              device=device, **runner_flags(wl))
     starts = []
     for i, scan in enumerate(runner.scans):
-        starts.append({"params": init_weights(cfg, seed + i, device), "opt": None,
-                       **initial_trainability(ref_cfg)})
+        starts.append({"params": seeded_weights(model, cfg, wl, seed + i, device), "opt": None,
+                       **model.initial_trainability(ref_cfg)})
         _seed_state(scan, starts[-1])
     runner.end_iter = runner.iter_step  # train() runs only what the caller asks for
-    return Setup(runner, cfg, campaign_window(runner, seed, starts), dirs)
+    return Setup(runner, cfg, campaign_window(runner, seed, starts, model), dirs, model,
+                 Periodic(runner.scans, model, seed))
 
 
-def campaign_window(runner, seed: int, starts: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+def campaign_window(runner, seed: int, starts: List[Dict[str, Any]],
+                    model) -> List[Dict[str, Any]]:
     """A campaign's first window from the benchmark's starts, through the
     runner's own ``MultiScanWindow`` on draws made from the seed (scan i's
     from ``seed + i * SCAN_STREAM``) and on each scan's views; returns what
@@ -367,8 +396,8 @@ def campaign_window(runner, seed: int, starts: List[Dict[str, Any]]) -> List[Dic
     for i, scan in enumerate(runner.scans):
         idxs.append(image_indices(scan.dataset.n_images, start_iter, k,
                                   np.random.RandomState(i)))
-        draws.append(make_draws(scan.cfg, scan.dataset.scene["images"].shape[:3], k,
-                                seed + i * SCAN_STREAM, dev))
+        draws.append(model.make_draws(scan.cfg, scan.dataset.scene["images"].shape[:3], k,
+                                      seed + i * SCAN_STREAM, dev))
         snaps.append(Snapshots(draws[i], scan.params, scan.opt_state))
         state0.append({"p0": check.snapshot_params(scan.params),
                        "m0": check.moments(scan.opt_state), "start": starts[i]})
@@ -390,9 +419,14 @@ def campaign_window(runner, seed: int, starts: List[Dict[str, Any]]) -> List[Dic
     return out
 
 
+def reg_weights(wl) -> bool:
+    """Whether the cell's launcher passes --reg_weights_schedule."""
+    return bool(wl.get("reg_weights_schedule", False))
+
+
 def runner_flags(wl) -> Dict[str, Any]:
     """The launcher's flags the cell's traffic sets."""
-    return {"reg_weights_schedule": bool(wl.get("reg_weights_schedule", False))}
+    return {"reg_weights_schedule": reg_weights(wl)}
 
 
 def _free() -> None:
@@ -410,6 +444,108 @@ def train_windows(runner, n: int) -> None:
     """n whole windows through ``Runner.train``."""
     runner.end_iter = runner.iter_step + n * WINDOW
     runner.train()
+
+
+PERIODIC = ("val_freq", "save_freq", "val_mesh_freq")  # the frequencies of Runner._periodic_actions
+RENDER_STREAM = 2 ** 33  # added to the seed for the draws of the validation render
+# the methods Runner._periodic_actions calls, each timed alone by main.profile_crossing
+ACTIONS = ("validate", "save_checkpoint", "validate_mesh", "extract_udf_mesh")
+
+
+def periodic_hits(cfg, iter_step: int, k: int) -> List[str]:
+    """The periodic actions a runner window of k iterations that ends at
+    ``iter_step`` runs, by their frequency's name: those whose frequency has
+    a multiple in the window (``Runner._periodic_actions``'s rule)."""
+    t = cfg.train
+    return [name for name in PERIODIC
+            if getattr(t, name) > 0 and iter_step // getattr(t, name)
+            > (iter_step - k) // getattr(t, name)]
+
+
+class _Errors(logging.Handler):
+    """Counts the error records of the port's loggers (the runner logs a
+    failed render or mesh and goes on)."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.n = 0
+
+    def emit(self, record):
+        self.n += 1
+
+
+class Periodic:
+    """The runners' periodic actions, watched. Each runner's
+    ``_periodic_actions`` is wrapped on the instance; a call that runs an
+    action (``periodic_hits``: the validation render, a checkpoint, the
+    meshes) is an event: the scan (the runner's index), the iteration, the
+    actions, its seconds, the launches of K1, K2 and K3 it made (its renders
+    and grid queries, which are not training steps), the errors the port
+    logged in it; where it renders the validation image, the render's calls
+    (``renders``: its renderer takes the benchmark's draws, the model's
+    ``render_draws``, from ``seed + RENDER_STREAM``) and the image
+    (``images.written``); where it writes meshes, the meshes
+    (``meshes.written``); and where it does either, a copy of the whole
+    parameter tree (``state``) as the image and the meshes were made from
+    it."""
+
+    def __init__(self, runners, model, seed: int):
+        self.events: List[Dict[str, Any]] = []
+        for i, r in enumerate(runners):
+            r._periodic_actions = self._watched(i, r, r._periodic_actions, model, seed)
+
+    def _watched(self, scan: int, runner, original, model, seed: int):
+        def periodic_actions(k: int):
+            hits = periodic_hits(runner.cfg, runner.iter_step, k)
+            if not hits:
+                return original(k)
+            event = {"scan": scan, "iter": runner.iter_step, "hits": hits}
+            if {"val_freq", "val_mesh_freq"} & set(hits):
+                event["state"] = _clone_tree(runner.params)
+            calls: List[Dict[str, Any]] = []
+            renders = contextlib.nullcontext(calls)
+            if "val_freq" in hits:
+                gen = torch.Generator(device=runner.device).manual_seed(seed + RENDER_STREAM)
+                renders = model.render_draws(runner, gen)
+            errors, port_log = _Errors(), logging.getLogger("neuraludf_tpu_torch")
+            port_log.addHandler(errors)
+            before, t0 = launch_counts(), time.time()
+            try:
+                with renders as calls:
+                    return original(k)
+            finally:
+                _sync(runner.device)
+                event["seconds"] = time.time() - t0
+                port_log.removeHandler(errors)
+                after = launch_counts()
+                event.update(errors=errors.n, renders=calls,
+                             launched={n: after[n] - before[n] for n in after},
+                             image=images.written(runner.base_exp_dir, event["iter"]),
+                             meshes=meshes.written(runner.base_exp_dir, event["iter"]))
+                self.events.append(event)
+
+        return periodic_actions
+
+    def windows(self, since: int = 0) -> int:
+        """Runner windows with a periodic action among the events from
+        ``since`` on (a campaign's scans each make one a window)."""
+        return len({e["iter"] for e in self.events[since:]})
+
+    def launched(self, since: int = 0) -> Dict[str, int]:
+        """The kernels' launches of the events from ``since`` on."""
+        out = {"K1": 0, "K2": 0, "K3": 0}
+        for e in self.events[since:]:
+            for n, v in e["launched"].items():
+                out[n] += v
+        return out
+
+    def errors(self, since: int = 0) -> int:
+        return sum(e["errors"] for e in self.events[since:])
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -480,36 +616,19 @@ def exact_f32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def initial_trainability(cfg) -> Dict[str, bool]:
-    """Beta's and the variance's trainability at a run's start, as the
-    configuration sets them."""
-    return {"beta_trainable": bool(cfg.model.beta_network.requires_grad_beta),
-            "variance_trainable": bool(cfg.model.variance_network.requires_grad
-                                       and not cfg.train.freeze_variance)}
-
-
-def _ref_state(start: Dict[str, Any], device):
+def _ref_state(start: Dict[str, Any], device, model):
     """The reference's parameters and Adam state, fresh copies of a start."""
     params = {}
     for path, t in check.flat_leaves(start["params"]):
         check.put(params, path, t.detach().clone().to(device).requires_grad_(True))
-    opt = ref_init_adam(params)
+    opt = model.init_adam(params)
     if start["opt"] is not None:
         with torch.no_grad():
             _copy_tree(opt, start["opt"], "optimizer state")
     return params, opt
 
 
-def _schedule_rows(cfg, start_iter: int, n: int, *, finetune: bool, wl, flags):
-    c = cfg.color_loss
-    return schedule_rows([compute_step_schedules(
-        start_iter + j, cfg.train, c.color_base_weight, c.color_weight, c.color_pixel_weight,
-        c.color_patch_weight, is_finetune=finetune,
-        reg_weights_schedule=bool(wl.get("reg_weights_schedule", False)),
-        same_lr=cfg.train.same_lr, **flags) for j in range(n)])
-
-
-def reference_start(cell: cells.Cell, weights, n_views: int, scene_dir: Path, device,
+def reference_start(cell: cells.Cell, model, weights, n_views: int, scene_dir: Path, device,
                     exp_dir: str, seed: int) -> Dict[str, Any]:
     """A finetune cell's start, made by the benchmark: the plain reference's
     ``setup_steps`` stage-1 iterations (the cell's ``setup_conf``) from the
@@ -520,21 +639,23 @@ def reference_start(cell: cells.Cell, weights, n_views: int, scene_dir: Path, de
     0.01 and below twice beta. Returns the parameters, the Adam state and
     the trainability."""
     wl = cell.workload
-    cfg = ref_config.load(str(cell.here / "configs" / cells.check_name(wl["setup_conf"])),
-                          **overrides(exp_dir, str(scene_dir)))
+    cfg = model.load_config(cell.here / "configs" / cells.check_name(wl["setup_conf"]),
+                            **overrides(exp_dir, str(scene_dir)))
     k = int(wl["setup_steps"])
     idxs = image_indices(n_views, 0, k)
-    flags = initial_trainability(cfg)
+    flags = model.initial_trainability(cfg)
     beta_flag = True
     with exact_f32():
-        scene_t = load_scene(str(scene_dir), idxs, device)
-        draws = make_draws(cfg, scene_t["images"].shape[:3], k, seed + SETUP_STREAM, device)
-        params, opt = _ref_state({"params": weights, "opt": None}, device)
-        body = ref_build_step_body(cfg, RefRenderer(cfg.model), blending=False)
+        scene_t = model.load_scene(scene_dir, idxs, device)
+        draws = model.make_draws(cfg, scene_t["images"].shape[:3], k, seed + SETUP_STREAM,
+                                 device)
+        params, opt = _ref_state({"params": weights, "opt": None}, device, model)
+        body = model.step_body(cfg, blending=False)
         for w0 in range(0, k, WINDOW):
             n = min(WINDOW, k - w0)
-            rows = torch.as_tensor(_schedule_rows(cfg, w0, n, finetune=False, wl=wl, flags=flags),
-                                   device=device)
+            rows = torch.as_tensor(model.schedule_rows(
+                cfg, w0, n, finetune=False, reg_weights_schedule=reg_weights(wl), flags=flags),
+                device=device)
             ms = [body(params, opt, scene_t, int(idxs[w0 + j]), rows[j], noise=draws[w0 + j])
                   for j in range(n)]
             for j, m in enumerate(ms):
@@ -558,17 +679,18 @@ def reference_side(cell: cells.Cell, setup_first: Dict[str, Any], scene_dir: Pat
     reference rounds its products' operands and cotangents to that pair of
     types (``reference.mlp.rounded``; the control)."""
     f = setup_first
-    cfg = ref_config.load(str(cell.conf_path), **overrides(exp_dir, str(scene_dir)))
-    scene_t = load_scene(str(scene_dir), f["idxs"], device, sources=8 if f["blending"] else 0)
-    params, opt = _ref_state(f["start"], device)
+    model = models.for_cell(cell)
+    cfg = model.load_config(cell.conf_path, **overrides(exp_dir, str(scene_dir)))
+    scene_t = model.load_scene(scene_dir, f["idxs"], device, sources=8 if f["blending"] else 0)
+    params, opt = _ref_state(f["start"], device, model)
     flags = {k: f["start"][k] for k in ("beta_trainable", "variance_trainable")}
-    rows = _schedule_rows(cfg, f["start_iter"], check.FOLLOW,
-                          finetune=cell.workload["stage"] == "finetune", wl=cell.workload,
-                          flags=flags)
-    body = ref_build_step_body(cfg, RefRenderer(cfg.model), blending=f["blending"])
+    rows = model.schedule_rows(cfg, f["start_iter"], check.FOLLOW,
+                               finetune=cell.workload["stage"] == "finetune",
+                               reg_weights_schedule=reg_weights(cell.workload), flags=flags)
+    body = model.step_body(cfg, blending=f["blending"])
     p0, m0 = check.snapshot_params(params), check.moments(opt)
     losses, terms, m1 = [], [], None
-    ctx = rounded(*rounding) if rounding is not None else contextlib.nullcontext()
+    ctx = model.rounded(*rounding) if rounding is not None else contextlib.nullcontext()
     with ctx:
         for j in range(check.FOLLOW):
             sched = torch.as_tensor(rows[j], device=device)

@@ -11,8 +11,8 @@ from harness import counts
 
 
 def read(ctx):
-    u = ctx.cfg.model.udf_network
-    rows = counts.fd_rows(ctx.cfg)
+    u = ctx.model.distance_cfg(ctx.cfg)
+    rows = ctx.model.fd_rows(ctx.cfg)
     least = counts.roofline_s(2.0 * rows * counts.fd_macs(u)["K1"],
                               counts.fd_bytes(u, rows)["K1"], u.fused_precision)
     return 100.0 * least / (ctx.fd_op_ms()["fwd"] / 1e3)

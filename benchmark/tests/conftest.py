@@ -50,8 +50,8 @@ train {
   fix_geo_end = 2
   use_white_bkgd = False
   save_freq = 10000
-  val_freq = 2500
-  val_mesh_freq = 2500
+  val_freq = %(val)d
+  val_mesh_freq = %(val)d
   report_freq = 100
   igr_weight = 0.1
   igr_ns_weight = 0.01
@@ -71,11 +71,14 @@ scene { kind = %(kind)s, views = 12, height = 30, width = 40, focal = 45 }
 """
 
 
-def tiny_conf(name, *, kind="sphere", outside=4, up="classical", finetune=False, norm=False):
+def tiny_conf(name, *, kind="sphere", outside=4, up="classical", finetune=False, norm=False,
+              val=2500):
+    """A tiny configuration; ``val`` is its ``val_freq`` and ``val_mesh_freq``."""
     hp = 2 if finetune else 1
     return TINY_TRAIN % {"name": name, "lr": 1e-4 if finetune else 5e-4,
                          "same": "False", "end": 500 if finetune else 3000,
-                         "pix": 0.1 if finetune else 0.0, "hp": hp, "kind": kind} + TINY_MODEL % {
+                         "pix": 0.1 if finetune else 0.0, "hp": hp, "kind": kind,
+                         "val": val} + TINY_MODEL % {
         "outside": outside, "up": up, "hp": hp, "norm": "True" if norm else "False"}
 
 
@@ -89,6 +92,7 @@ def write_tiny_bench(root: Path) -> Path:
     (here / "configs").mkdir(parents=True)
     (here / "workloads").mkdir()
     shutil.copytree(HERE / "metrics", here / "metrics")
+    shutil.copytree(HERE / "models", here / "models", ignore=shutil.ignore_patterns("__pycache__"))
     (here / "configs" / "tiny.conf").write_text(tiny_conf("tiny"))
     (here / "configs" / "tiny.finetune.conf").write_text(tiny_conf("tiny_ft", finetune=True))
     (here / "configs" / "tinyg.conf").write_text(

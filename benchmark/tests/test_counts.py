@@ -6,6 +6,7 @@ import math
 import pytest
 
 from conftest import HERE
+import models
 from harness import counts, trace
 from reference import config as ref_config
 
@@ -49,32 +50,33 @@ def test_k1_k2_count_equals_chip_smoke_default_count():
 
 def test_samples_rows_and_step_by_hand():
     d, g = dtu_cfg(), garment_cfg()
+    m = models.load(models.DEFAULT)
     # classical: 5 rounds of 50 // 5 = 10, the last one not evaluated
-    assert counts.samples_per_ray(d.model.udf_renderer) == {"fg": 114, "valued": 104,
+    assert m.samples_per_ray(d.model.udf_renderer) == {"fg": 114, "valued": 104,
                                                             "nerf": 146}
     # mix: 6 rounds of 80 // 6 = 13, the last one not evaluated; no background
-    assert counts.samples_per_ray(g.model.udf_renderer) == {"fg": 142, "valued": 129,
+    assert m.samples_per_ray(g.model.udf_renderer) == {"fg": 142, "valued": 129,
                                                             "nerf": 0}
-    assert counts.fd_rows(d) == 58368 and counts.fd_rows(g) == 72704
+    assert m.fd_rows(d) == 58368 and m.fd_rows(g) == 72704
     # NeRF++: PE of 4 inputs at 10 frequencies = 84, skip after layer 4
     nerf = counts.nerf_widths(d.model.nerf)
     assert nerf == [(84, 256)] + [(256, 256)] * 4 + [(340, 256), (256, 256), (256, 256),
                                                      (256, 1), (256, 256), (283, 128),
                                                      (128, 3)]
     # colour: base 259 -> 128 x4 -> 3; main 128 + 3 + 27 = 158 -> 128 x4 -> 3 + 10
-    col = counts.color_widths(d.model.rendering_network)
+    col = m.color_widths(d.model.rendering_network)
     assert col == [(259, 128), (128, 128), (128, 128), (128, 128), (128, 3),
                    (158, 128), (128, 128), (128, 128), (128, 128), (128, 13)]
-    s = counts.step_flops(d)
+    s = m.step_flops(d)
     fwd_nerf = sum(a * b for a, b in nerf)
     assert s["nerf"] == 2.0 * 512 * 146 * (3 * fwd_nerf - 84 * 256)
     assert s["color"] == 2.0 * 512 * 114 * 3 * sum(a * b for a, b in col)
     assert s["upsampling"] == 2.0 * 512 * 104 * counts.udf_passes(d.model.udf_network)["one_col"]
     assert math.isclose(s["total"], sum(v for k, v in s.items() if k != "total"))
-    assert counts.step_flops(g)["nerf"] == 0.0
+    assert m.step_flops(g)["nerf"] == 0.0
     # the DTU step is about 830 GFLOP, the garment step about 700
     assert 8.2e11 < s["total"] < 8.4e11
-    assert 6.9e11 < counts.step_flops(g)["total"] < 7.1e11
+    assert 6.9e11 < m.step_flops(g)["total"] < 7.1e11
 
 
 def test_bytes_and_roofline():

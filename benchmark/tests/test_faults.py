@@ -12,6 +12,7 @@ import time
 import pytest
 import torch
 
+import models
 from harness import cells, check, faults, main, session
 
 torch.set_num_threads(2)
@@ -31,21 +32,21 @@ def test_sound_run_is_correct(tiny_bench, tmp_path):
 
 
 def test_unchanged_state_is_caught(tiny_bench, tmp_path, monkeypatch):
-    faults.FAULTS["unchanged"](monkeypatch.setattr)
+    faults.FAULTS["unchanged"](models.load(models.DEFAULT), monkeypatch.setattr)
     res = run(tiny_bench, tmp_path)
     assert not res["correct"]
     assert res["checks"]["change_gap"]["value"] >= 0.99
 
 
 def test_half_batch_is_caught(tiny_bench, tmp_path, monkeypatch):
-    faults.FAULTS["half_batch"](monkeypatch.setattr)
+    faults.FAULTS["half_batch"](models.load(models.DEFAULT), monkeypatch.setattr)
     res = run(tiny_bench, tmp_path)
     assert not res["correct"]
 
 
 @pytest.mark.parametrize("name", ["tiny.stage1", "tiny.finetune"])
 def test_a_k2_layer_fault_is_caught(tiny_bench, tmp_path, monkeypatch, name):
-    faults.FAULTS["k2_layer"](monkeypatch.setattr)
+    faults.FAULTS["k2_layer"](models.load(models.DEFAULT), monkeypatch.setattr)
     res = run(tiny_bench, tmp_path, name)
     assert not res["correct"]
     assert res["checks"]["udf_grad_gap"]["value"] >= 0.1
@@ -63,5 +64,5 @@ def test_the_control_fails(tiny_bench, tmp_path, name):
         ctls.append(session.reference_side(cell, first, scene_dir, dev, str(tmp_path),
                                            rounding=faults.CONTROL))
     ports = [session.program_side(f) for f in setup.firsts]
-    assert set(check.compare_scans(ports, refs)[0].values()) == {0.0}
-    assert not check.judge(check.compare_scans(ctls, refs)[0], cell.workload["limits"])
+    assert set(check.compare_scans(ports, refs, setup.model)[0].values()) == {0.0}
+    assert not check.judge(check.compare_scans(ctls, refs, setup.model)[0], cell.workload["limits"])

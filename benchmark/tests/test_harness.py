@@ -117,14 +117,13 @@ def test_the_finetune_starts_from_the_reference(tiny_bench, tmp_path):
     import torch
 
     from harness import check, session
-    from harness.weights import init_weights
 
     cell = cells.load_cell("tiny.finetune", here=tiny_bench)
     dev = torch.device("cpu")
     setup = session.build(cell, 2**31 + 31, dev, str(tmp_path), cache=tmp_path / "scenes")
     start = setup.first["start"]
     assert start["opt"] is not None and setup.reference_s > 0
-    seeded = dict(check.flat_leaves(init_weights(setup.cfg, 2**31 + 31, dev)))
+    seeded = dict(check.flat_leaves(setup.model.init_weights(setup.cfg, 2**31 + 31, dev)))
     made = dict(check.flat_leaves(start["params"]))
     assert any(not torch.equal(made[k], seeded[k]) for k in made)  # the steps moved it
     for k, t in setup.first["p0"].items():  # the port began where the reference ended

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import models
 from harness import cells, faults, main, scene, session
 
 torch.set_num_threads(2)
@@ -110,7 +111,7 @@ def test_a_campaign_run_is_correct(tiny_bench, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("fault", ["crossed_scans", "unchanged", "half_batch"])
 def test_a_campaign_fault_is_caught(tiny_bench, tmp_path, monkeypatch, fault):
-    faults.FAULTS[fault](monkeypatch.setattr)
+    faults.FAULTS[fault](models.load(models.DEFAULT), monkeypatch.setattr)
     res = run(tiny_bench, tmp_path)
     assert not res["correct"]
     if fault == "crossed_scans":  # scan 0 is sound: the worst scan is the crossed one

@@ -11,7 +11,7 @@ import torch
 
 from conftest import HERE, tiny_conf
 from harness import check, scene, session
-from harness.weights import init_weights
+import models
 from reference import config as ref_config
 from reference.dataset import load_scene
 from reference.renderer import UDFRenderer as RefRenderer
@@ -95,11 +95,12 @@ def test_reference_step_is_the_ports_eager_step(tiny_scene, tmp_path, finetune, 
     ov = session.overrides(str(tmp_path), str(tiny_scene))
     pcfg, rcfg = port_config.load(str(path), **ov), ref_config.load(str(path), **ov)
     assert dataclasses.asdict(pcfg) == dataclasses.asdict(rcfg)
-    w = init_weights(rcfg, 1234567890123, "cpu")
+    model = models.load(models.DEFAULT)
+    w = model.init_weights(rcfg, 1234567890123, "cpu")
     own = lambda: {p: t.clone().requires_grad_(True) for p, t in check.flat_leaves(w)}
     pp, rp = _tree(own()), _tree(own())
     po, ro = init_adam_state(pp), init_adam_state(rp)
-    draws = session.make_draws(rcfg, (12, 30, 40), 3, 77, "cpu")
+    draws = model.make_draws(rcfg, (12, 30, 40), 3, 77, "cpu")
     idxs = session.image_indices(12, 0, 3)
     c = rcfg.color_loss
     rows = torch.as_tensor(schedule_rows([compute_step_schedules(
@@ -137,8 +138,8 @@ def test_seeded_weights_fit_the_ports_tree_at_the_published_widths():
     for conf in ("dtu.conf", "garment.conf"):
         cfg = port_config.load(str(HERE / "configs" / conf))
         port = dict(check.flat_leaves(init_params(torch.Generator().manual_seed(0), cfg)))
-        mine = dict(check.flat_leaves(init_weights(ref_config.load(str(HERE / "configs" / conf)),
-                                                   2**31 + 5, "cpu")))
+        mine = dict(check.flat_leaves(models.load(models.DEFAULT).init_weights(
+            ref_config.load(str(HERE / "configs" / conf)), 2**31 + 5, "cpu")))
         assert port.keys() == mine.keys()
         for k in port:
             assert port[k].shape == mine[k].shape, k

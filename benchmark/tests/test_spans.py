@@ -198,11 +198,14 @@ def test_the_new_metrics_are_appended_with_their_cells():
     names = [m["name"] for m in bench["per_layer"]]
     assert names[:5] == ["kernels_per_step", "device_idle_share", "step_mfu", "fd_fwd_roofline",
                          "fd_bwd_roofline"]
-    assert names[5:] == NEW
+    assert names[5:5 + len(NEW)] == NEW
     for w in bench["workloads"]:
         cell = cells.load_cell(w["name"], bench)
-        got = [m.name for m in cell.per_layer][5:]
+        got = [m.name for m in cell.per_layer if m.name in NEW]
         if cell.workload.get("scans", 1) > 1:  # MultiScanRunner.train has no runner.* spans
+            assert got == []
+            continue
+        if w["name"] == "dtu.periodic":  # its traced windows are dtu.stage1's, read there
             assert got == []
             continue
         assert got == [n for n in NEW if n != "k3_path_ms" or w["name"] == "dtu.finetune"]
