@@ -7,8 +7,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build ``neuraludf_tpu_torch/csrc/fused_distance.cu``,
-   ``csrc/strip_sample.cu`` and ``csrc/adam.cu`` for sm_90a, the nvcc
-   processes started together;
+   ``csrc/strip_sample.cu``, ``csrc/adam.cu`` and ``csrc/nerf_mlp.cu`` for
+   sm_90a, the nvcc processes started together;
 3. kernels K1 (fused distance forward) and K2 (its second-order backward)
    at the main path's width (58,368 points, the 8x256 net of
    ``confs/synthetic_smoke.conf``, its ``abs`` head), each tier ("default",
@@ -29,6 +29,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    CUDA graph and replayed 5 times on new gradients and rows; step counts
    exact, p, m and v within ``TOL_ADAM_ULPS``; the training phases below
    check that it runs once a step (and scan);
+3b. ``[nerf]``: K4, the NeRF++ background MLP (``ops/nerf_mlp.py``), at a
+   DTU step's 74,752 rows and a validation chunk's 598,016: forward and
+   backward captured in a CUDA graph, two replays bit-equal, the forward
+   without gradient bit-equal to the graph's, against the explicit version
+   and autograd of the plain bf16 chain (raw, rgb, every W̄ and b̄) within
+   ``TOL_NERF``; the training phases below check that it runs once a step
+   on the DTU-width paths (forward once a chunk in the validation renders)
+   and never on the garment recipe's;
 4. the synthetic sphere scene (16 views, 600x800) with the port's generator;
 5. one training loss and its gradients on a small batch through the kernels
    (tiers "highest" and "high") against the plain autograd path;
@@ -124,7 +132,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 12. CUDA-event times of K1, K2 (each tier), K3, their plain versions and
     K3's library call, at the training shapes and at the validation chunk's;
     of the Adam kernel and the plain ``adam_step`` and ``flat_adam_step`` on
-    the DTU tree, each a graph of 10 updates; the profile
+    the DTU tree, each a graph of 10 updates; of K4 at a step's rows (its
+    forward with and without what the backward reads, its backward, both
+    under autograd) and of the plain chain; the profile
     of one validation chunk; the profile of a steady eager step of each
     path.
 
@@ -349,6 +359,25 @@ ADAM_STEPS = 20
 ADAM_REPLAYS = 5  # replays of the captured update
 ADAM_TIMED = 10  # updates in each timed graph
 TOL_ADAM_ULPS = 1  # p, m, v: the card's powf may round the bias corrections apart from torch's
+
+# [nerf]: K4, the NeRF++ background MLP (ops/nerf_mlp.py), at a DTU step's
+# rows (512 rays x (64 + 50 + 32) samples) and a validation chunk's (4,096
+# rays), forward and backward inside a CUDA graph, against its explicit
+# version (the same roundings in torch) and autograd of the plain bf16 chain
+N_NERF_ROWS = 512 * (64 + 50 + 32)
+# the kernels every step of a DTU-width training path launches once (the
+# garment recipe has no background NeRF: K4 reads 0 there)
+DTU_PATH = ("K1", "K2", "K4f", "K4b")
+N_NERF_VAL_ROWS = 4096 * (64 + 50 + 32)
+NERF_SEED = 5
+# max |K4 - reference| / max |reference| per output and leaf. Against the
+# explicit version: the same bf16 operands, f32 sums in another order; a
+# pre-activation an f32 ulp apart may round to the neighbouring bf16 value
+# and carry 2^-8 down the layers (measured on the H100: 1.55e-3 at a
+# step's rows, 2.15e-3 at a chunk's, raw the worst). Against the plain
+# chain: it also rounds each product's output and its weight cotangents to
+# bf16 (measured 4.8e-3 and 5.4e-3).
+TOL_NERF = {"explicit": 1e-2, "autograd": 3e-2}
 
 
 def log(msg: str) -> None:
@@ -847,6 +876,184 @@ def time_adam(dev, card) -> dict:
     return {"ms": times, "bytes": nbytes}
 
 
+def nerf_launches() -> tuple:
+    from neuraludf_tpu_torch.ops import nerf_mlp
+
+    return nerf_mlp.nerf_forward.launches, nerf_mlp.nerf_backward.launches
+
+
+def nerf_setup(dev, n: int, seed: int = NERF_SEED):
+    """The DTU NeRF++ (seeded init) and n rows of its inputs as
+    ``render_core_outside`` makes them, with cotangents of a positive mean:
+    (weights, biases, pts, views, d_raw, d_rgb) on dev."""
+    from neuraludf_tpu_torch.config import NeRFConfig
+    from neuraludf_tpu_torch.nets import fields
+    from neuraludf_tpu_torch.ops import nerf_mlp
+
+    gen = torch.Generator().manual_seed(seed)
+    params = fields.init_background_nerf(gen, NeRFConfig())
+    ws, bs = nerf_mlp.layer_params(params)
+    d = torch.randn(n, 3, generator=gen)
+    r = 1.0 + torch.empty(n, 1).exponential_(1.0 / 3.0, generator=gen)
+    pts = torch.cat([d / d.norm(dim=1, keepdim=True), 1.0 / r], 1)
+    v = torch.randn(n, 3, generator=gen)
+    views = v / v.norm(dim=1, keepdim=True)
+    d_raw = torch.rand(n, 1, generator=gen)
+    d_rgb = torch.rand(n, 3, generator=gen) * 1.5 - 0.5
+    leaves = [t.to(dev).requires_grad_(True) for t in (*ws, *bs)]
+    return (leaves[:len(ws)], leaves[len(ws):],
+            *(t.to(dev).contiguous() for t in (pts, views, d_raw, d_rgb)))
+
+
+def nerf_call(ws, bs, pts, views, d_raw, d_rgb, apply=None):
+    """raw, rgb and every leaf's cotangent of one forward and backward
+    through ``apply`` (nerf_mlp.nerf_apply by default)."""
+    from neuraludf_tpu_torch.ops import nerf_mlp
+
+    apply = apply or nerf_mlp.nerf_apply
+    raw, rgb = apply(ws, bs, pts, views)
+    grads = torch.autograd.grad((raw * d_raw).sum() + (rgb * d_rgb).sum(), (*ws, *bs))
+    return [raw.detach(), rgb.detach(), *grads]
+
+
+def check_nerf_at(dev, n: int) -> dict:
+    """K4 forward and backward at n rows captured in a CUDA graph (two
+    eager warm-ups on a side stream), replayed twice (bit-equal), against
+    the explicit version and autograd of the plain chain; its forward alone
+    (no gradient) bit-equal to the graph's. Returns the worst relative
+    errors and the capture's launch counts."""
+    from neuraludf_tpu_torch.ops import nerf_mlp
+
+    ws, bs, pts, views, d_raw, d_rgb = nerf_setup(dev, n)
+    names = ["raw", "rgb"] + [f"{'.'.join(p)}.{k}" for k in ("w", "b") for p in nerf_mlp.LAYERS]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            nerf_call(ws, bs, pts, views, d_raw, d_rgb)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = nerf_launches()
+    with torch.cuda.graph(graph):
+        static = nerf_call(ws, bs, pts, views, d_raw, d_rgb)
+    after = nerf_launches()
+    out = {"rows": n, "capture_launches": {"fwd": after[0] - before[0],
+                                           "bwd": after[1] - before[1]}}
+    graph.replay()
+    first = [t.clone() for t in static]
+    graph.replay()
+    torch.cuda.synchronize()
+    out["replays_equal"] = all(torch.equal(a, b) for a, b in zip(first, static))
+    with torch.no_grad():
+        raw, rgb = nerf_mlp.nerf_apply(ws, bs, pts, views)
+    out["no_grad_equal"] = torch.equal(raw, static[0]) and torch.equal(rgb, static[1])
+    with torch.no_grad():
+        wd, bd = [w.detach() for w in ws], [b.detach() for b in bs]
+        ex = [*nerf_mlp.explicit_forward(pts, views, wd, bd)]
+        dws, dbs = nerf_mlp.explicit_backward(pts, views, wd, bd, d_raw, d_rgb)
+        ex += [*dws, *dbs]
+    plain = nerf_call(ws, bs, pts, views, d_raw, d_rgb, apply=plain_nerf_forward)
+    errs = {ref: {name: rel_err(k, r)[1] for name, k, r in zip(names, static, refs)}
+            for ref, refs in (("explicit", ex), ("autograd", plain))}
+    out["max_rel_err"] = {ref: max(e.values()) for ref, e in errs.items()}
+    out["worst"] = {ref: max(e, key=e.get) for ref, e in errs.items()}
+    del graph, static, first, ex, plain
+    torch.cuda.empty_cache()
+    log(f"[nerf] K4 at {n} rows in a CUDA graph: capture launches {out['capture_launches']}, "
+        f"replays bit-equal {out['replays_equal']}, forward without gradient bit-equal "
+        f"{out['no_grad_equal']}; max relative error against the explicit version "
+        f"{out['max_rel_err']['explicit']:.2e} ({out['worst']['explicit']}), against autograd "
+        f"of the plain chain {out['max_rel_err']['autograd']:.2e} ({out['worst']['autograd']})")
+    if (out["capture_launches"] != {"fwd": 1, "bwd": 1} or not out["replays_equal"]
+            or not out["no_grad_equal"]
+            or any(out["max_rel_err"][ref] > TOL_NERF[ref] for ref in TOL_NERF)):
+        raise AssertionError(f"[nerf] K4 at {n} rows: {out}")
+    return out
+
+
+def check_nerf(dev) -> dict:
+    """[nerf]: K4 at a DTU step's and a validation chunk's rows
+    (``check_nerf_at``), and the CUDA launches of one forward and one
+    backward call."""
+    from neuraludf_tpu_torch.ops import nerf_mlp
+
+    t0 = time.time()
+    nerf_mlp.library()
+    out = {"build_s": time.time() - t0}
+    for n in (N_NERF_ROWS, N_NERF_VAL_ROWS):
+        out[n] = check_nerf_at(dev, n)
+    ws, bs, pts, views, d_raw, d_rgb = nerf_setup(dev, N_NERF_ROWS)
+    with torch.no_grad():
+        scratch = [None]
+
+        def fwd():
+            scratch[0] = nerf_mlp.nerf_forward(pts, views, ws, bs, save=True)[2]
+
+        out["cuda_launches"] = {"fwd": cuda_launches(fwd), "bwd": cuda_launches(
+            lambda: nerf_mlp.nerf_backward(ws, N_NERF_ROWS, d_raw, d_rgb, scratch[0]))}
+    out["capture_launches"] = out[N_NERF_ROWS]["capture_launches"]
+    log(f"[nerf] CUDA launches a call {out['cuda_launches']}; ok in {time.time() - t0:.1f} s")
+    return out
+
+
+def nerf_flops(n: int) -> dict:
+    """Operations of K4 over n rows: 2 a multiply-add of every product at
+    the true widths; the backward is twice the forward less the first
+    layer's input product (no cotangent flows to the encoding)."""
+    from neuraludf_tpu_torch.ops import nerf_mlp
+
+    fwd = sum(k * m for k, m in nerf_mlp.SHAPES)
+    first = nerf_mlp.SHAPES[0][0] * nerf_mlp.SHAPES[0][1]
+    return {"fwd": 2.0 * n * fwd, "bwd": 2.0 * n * (2 * fwd - first)}
+
+
+def time_nerf(dev, card, n: int = N_NERF_ROWS) -> dict:
+    """Device ms of K4 at n rows (CUDA events over REPS calls): the forward
+    that keeps what the backward reads (as training runs it) and the one
+    that does not (the validation renders; what a backward that recomputed
+    the trunk would add), the backward alone, and both under autograd; the
+    plain chain's forward, and its forward and backward under autograd; the
+    bounds at the bf16 peak."""
+    from neuraludf_tpu_torch.ops import nerf_mlp
+
+    ws, bs, pts, views, d_raw, d_rgb = nerf_setup(dev, n)
+    with torch.no_grad():
+        saved = nerf_mlp.nerf_forward(pts, views, ws, bs, save=True)[2]
+        times = {
+            "fwd_save": cuda_ms(lambda: nerf_mlp.nerf_forward(pts, views, ws, bs, save=True)),
+            "fwd": cuda_ms(lambda: nerf_mlp.nerf_forward(pts, views, ws, bs, save=False)),
+            "bwd": cuda_ms(lambda: nerf_mlp.nerf_backward(ws, n, d_raw, d_rgb, saved))}
+    del saved
+    times["fwd_bwd"] = cuda_ms(lambda: nerf_call(ws, bs, pts, views, d_raw, d_rgb))
+    times["plain_fwd_bwd"] = cuda_ms(lambda: nerf_call(ws, bs, pts, views, d_raw, d_rgb,
+                                                       apply=plain_nerf_forward))
+    with torch.no_grad():
+        times["plain_fwd"] = cuda_ms(lambda: plain_nerf_forward(ws, bs, pts, views))
+    fl = nerf_flops(n)
+    bound = {"fwd": fl["fwd"] / PEAK_FLOPS["default"] * 1e3,
+             "fwd_bwd": (fl["fwd"] + fl["bwd"]) / PEAK_FLOPS["default"] * 1e3}
+    out = {"rows": n, "ms": times, "bound_ms": bound, "flops": fl,
+           "share_of_bound": {"fwd": bound["fwd"] / times["fwd_save"],
+                              "fwd_bwd": bound["fwd_bwd"] / times["fwd_bwd"]}}
+    log(f"[time] K4 at {n} rows: forward {times['fwd_save']:.3f} ms saving for the backward "
+        f"({times['fwd']:.3f} without), backward {times['bwd']:.3f}, both {times['fwd_bwd']:.3f} "
+        f"ms against a bound of {bound['fwd']:.4f} / {bound['fwd_bwd']:.4f} ms "
+        f"({100 * out['share_of_bound']['fwd_bwd']:.1f}% of it); the plain chain "
+        f"{times['plain_fwd']:.3f} ms forward, {times['plain_fwd_bwd']:.3f} ms both  [{card}]")
+    return out
+
+
+def plain_nerf_forward(ws, bs, pts, views):
+    """(raw, rgb) of the plain chain (``background_nerf_apply_plain``)."""
+    from neuraludf_tpu_torch.config import NeRFConfig
+    from neuraludf_tpu_torch.nets import fields
+
+    tree = {"pts": {f"lin{i}": {"w": ws[i], "b": bs[i]} for i in range(8)},
+            "feature": {"w": ws[8], "b": bs[8]}, "views": {"lin0": {"w": ws[9], "b": bs[9]}},
+            "alpha": {"w": ws[10], "b": bs[10]}, "rgb": {"w": ws[11], "b": bs[11]}}
+    return fields.background_nerf_apply_plain(tree, pts, views, NeRFConfig())
+
+
 def check_strip_sample(scene, dev):
     """K3 at the finetune's shape on seeded positions."""
     return check_strip_sample_at(*k3_inputs(scene, dev), both_sides=True)
@@ -995,7 +1202,7 @@ def train_tier(tier, ckpt, common, exp_dir, n_stage1, dev, counters) -> dict:
     with_routes = dict(counters, **{f"{name}/{r}": kern.routes[r] for name, kern in
                                     (("K1", fd.fused_forward), ("K2", fd.fused_backward))
                                     for r in fd.ROUTES})
-    on_path = ("K1", "K2", f"K1/{route}", f"K2/{route}")
+    on_path = DTU_PATH + (f"K1/{route}", f"K2/{route}")
     runner = Runner(cfg, device=dev, seed=0)
     runner.load_checkpoint(ckpt)
     log(f"[{tier}] stage 1 at fused_precision={tier}, route {route}, from {Path(ckpt).name}")
@@ -1537,8 +1744,9 @@ def check_validate(runner, cfg, exp_dir, counters, card):
     log(f"[validate] Runner.validate(level 4): {h * w} rays, {n_chunks} chunks in "
         f"{out['validate_s']:.2f} s; launches {launches}; peak device memory "
         f"{out['validate_peak_gib']:.2f} GiB above the resident {held / 2**30:.2f} GiB  [{card}]")
-    if launches != {"K1": n_chunks, "K2": 0, "K3": n_chunks}:
-        raise AssertionError(f"validate: launches {launches}, expected K1 = K3 = {n_chunks}")
+    if launches != {"K1": n_chunks, "K2": 0, "K3": n_chunks, "K4f": n_chunks, "K4b": 0}:
+        raise AssertionError(f"validate: launches {launches}, expected K1 = K3 = K4f = "
+                             f"{n_chunks}")
     if img.shape != (h * w, 10) or not np.isfinite(img).all():
         raise AssertionError("validate rendered a non-finite image or one of the wrong shape")
     gt = runner.dataset.image_at(VAL_IDX, 4).reshape(-1, 3) / 256.0
@@ -1587,8 +1795,10 @@ def check_validate(runner, cfg, exp_dir, counters, card):
     log(f"[validate] CLI validate_image (level 1, {n_img} views of {rays} rays, {chunks} chunks): "
         f"{out['cli_s']:.1f} s in all; per view " + ", ".join(
             f"{t:.2f} s = {rays / t:.0f} rays/s" for t in times) + f"; launches {launches}  [{card}]")
-    if launches != {"K1": chunks, "K2": 0, "K3": chunks} or len(times) != n_img:
-        raise AssertionError(f"validate_image: launches {launches}, expected K1 = K3 = {chunks}")
+    if (launches != {"K1": chunks, "K2": 0, "K3": chunks, "K4f": chunks, "K4b": 0}
+            or len(times) != n_img):
+        raise AssertionError(f"validate_image: launches {launches}, expected K1 = K3 = K4f = "
+                             f"{chunks}")
     for i in range(0, n_img * 10, 10):
         check_png(exp_root / "novel_view" / f"pred_{i}.png",
                   (runner.dataset.H, runner.dataset.W, 3))
@@ -2055,11 +2265,11 @@ def check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card,
 
     out = {"stage1": multi_scan_run(dataclasses.replace(cfg, train=dataclasses.replace(
                cfg.train, end_iter=MS_STEPS, save_freq=MS_STEPS, report_freq=MS_STEPS)),
-               scene_dir, exp_dir / "multi_scan", MS_SCANS, dev, counters, ("K1", "K2"), seed=0),
+               scene_dir, exp_dir / "multi_scan", MS_SCANS, dev, counters, DTU_PATH, seed=0),
            "finetune": multi_scan_run(dataclasses.replace(ft_cfg, train=dataclasses.replace(
                ft_cfg.train, end_iter=MS_STEPS, save_freq=MS_STEPS, report_freq=MS_STEPS)),
                scene_dir, exp_dir / "multi_scan_ft", MS_FT_SCANS, dev, counters,
-               ("K1", "K2", "K3"), seed=1, is_finetune=True, ckpt=ckpt)}
+               DTU_PATH + ("K3",), seed=1, is_finetune=True, ckpt=ckpt)}
     out["sweep"] = time_multi_scan(cfg, ckpt, Dataset(cfg.dataset, dev).scene, dev, card,
                                    single_ms)
     return out
@@ -2114,7 +2324,8 @@ def check_dp(cfg, ckpt, dev, counters, card, exp_dir) -> dict:
                     for j in range(got.shape[1]) if not torch.equal(got[:, j], want[:, j])}
             raise AssertionError(f"[dp] the ray-parallel window differs from the single: {equal}; "
                                  f"largest differences by metric {cols}")
-        if launches != {"K1": DP_STEPS, "K2": DP_STEPS, "K3": 0}:
+        if launches != {"K1": DP_STEPS, "K2": DP_STEPS, "K3": 0, "K4f": DP_STEPS,
+                        "K4b": DP_STEPS}:
             raise AssertionError(f"[dp] launches {launches}")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             dp_window(dp_runner.params, dp_runner.opt_state, dp_runner.dataset.scene, idxs,
@@ -2236,7 +2447,7 @@ def check_garment(dtu_cfg, ckpt, dev, counters, card) -> dict:
     out["profile"] = profile_window(g_runner, card)
     out["launches_per_replay"] = {n: k.launches / TIMED_STEPS for n, k in counters.items()}
     log(f"[garment] launches a replayed step: {out['launches_per_replay']}")
-    if out["launches_per_replay"] != {"K1": 1.0, "K2": 1.0, "K3": 0.0}:
+    if out["launches_per_replay"] != {"K1": 1.0, "K2": 1.0, "K3": 0.0, "K4f": 0.0, "K4b": 0.0}:
         raise AssertionError(f"[garment] K1/K2 not once a replayed step: "
                              f"{out['launches_per_replay']}")
     del g_runner, d_runner
@@ -2318,7 +2529,7 @@ def check_bmvs(dev, counters, card) -> dict:
                              "on the card")
     log(f"[bmvs] Dataset(dataset_name='bmvs'): {runner.dataset.n_images} views "
         f"{tuple(images.shape[1:3])} on {images.device} in {out['load_s']:.1f} s")
-    out["launches"], _ = train_main_path(runner, cfg, exp_dir, counters, ("K1", "K2"))
+    out["launches"], _ = train_main_path(runner, cfg, exp_dir, counters, DTU_PATH)
     del runner
     torch.cuda.empty_cache()
     return out
@@ -2365,6 +2576,7 @@ def main() -> int:
     from neuraludf_tpu_torch.ops import adam as adam_op
     from neuraludf_tpu_torch.ops import build
     from neuraludf_tpu_torch.ops import fused_distance as fd
+    from neuraludf_tpu_torch.ops import nerf_mlp
     from neuraludf_tpu_torch.ops import strip_sample as ss
     from neuraludf_tpu_torch.train.runner import Runner
 
@@ -2376,9 +2588,10 @@ def main() -> int:
     t0 = time.time()
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
         engine = pool.submit(mesh_build.ensure_built)
-        built = build.compile_sources(["fused_distance", "strip_sample", "adam"])  # in parallel
+        built = build.compile_sources(["fused_distance", "strip_sample", "adam",
+                                       "nerf_mlp"])  # in parallel
         engine = engine.result()
-    fd.library(), ss.library(), adam_op.library()
+    fd.library(), ss.library(), adam_op.library(), nerf_mlp.library()
     log(f"[build] {', '.join(f'{n}.cu -> {p.name}' for n, p in built.items())}, "
         f"mesh/csrc -> {engine.name} in {time.time() - t0:.1f} s")
 
@@ -2403,6 +2616,8 @@ def main() -> int:
     log(f"[kernels] K1/K2 at N={N_POINTS} against the plain versions")
     errors, kin = check_kernels(ucfg, dev)
     launches_a_call = call_launches(kin)
+    log(f"[nerf] K4 at {N_NERF_ROWS} and {N_NERF_VAL_ROWS} rows against its plain versions")
+    nerf = check_nerf(dev)
     for head in sorted(set(fd.HEADS) - {ucfg.udf_type}):  # the heads the main path does not run
         log(f"[kernels] K1/K2 with the '{head}' head at N={N_OTHER_HEADS}")
         check_kernels(dataclasses.replace(ucfg, udf_type=head), dev, N_OTHER_HEADS)
@@ -2439,8 +2654,9 @@ def main() -> int:
     log(f"[step-parity] ok in {time.time() - t0:.1f} s")
 
     # the two main paths; every kernel's count is set to 0 before each
-    counters = {"K1": fd.fused_forward, "K2": fd.fused_backward, "K3": ss.strip_sample}
-    launches_stage1, _ = train_main_path(runner, cfg, exp_dir, counters, ("K1", "K2"))
+    counters = {"K1": fd.fused_forward, "K2": fd.fused_backward, "K3": ss.strip_sample,
+                "K4f": nerf_mlp.nerf_forward, "K4b": nerf_mlp.nerf_backward}
+    launches_stage1, _ = train_main_path(runner, cfg, exp_dir, counters, DTU_PATH)
     ckpt = runner._latest_checkpoint()
     if ckpt is None:
         raise AssertionError("the stage-1 run saved no checkpoint")
@@ -2451,7 +2667,7 @@ def main() -> int:
         raise AssertionError("the finetune did not restart the schedule clock")
     log(f"[finetune] loaded {Path(ckpt).name} of the stage-1 run")
     launches_ft, ft_rows = train_main_path(ft_runner, ft_cfg, exp_dir, counters,
-                                           ("K1", "K2", "K3"))
+                                           DTU_PATH + ("K3",))
     check_finetune_rows(ft_rows)
 
     # the graph-replayed window against the eager loop, from the stage-1
@@ -2460,10 +2676,10 @@ def main() -> int:
     window_common = dict(common, general__base_exp_dir=str(exp_dir / "window"))
     window = {
         "stage1": check_window(config_mod.load(str(CONF), **window_common), ckpt, dev, counters,
-                               ("K1", "K2"), card, seed=0, is_finetune=False),
+                               DTU_PATH, card, seed=0, is_finetune=False),
         "finetune": check_window(config_mod.load(str(FT_CONF), train__end_iter=FT_STEPS,
                                                  **FT_SCHEDULE, **window_common),
-                                 ckpt, dev, counters, ("K1", "K2", "K3"), card, seed=1,
+                                 ckpt, dev, counters, DTU_PATH + ("K3",), card, seed=1,
                                  is_finetune=True)}
     torch.cuda.empty_cache()
     print(json.dumps({"window": window, "card": card}), flush=True)
@@ -2517,6 +2733,7 @@ def main() -> int:
                                                             launches_a_call, backward=False)
     k3_val_times, k3_val_bytes, k3_val_flops = time_strip_sample(val["k3_inputs"], card)
     adam_times = time_adam(dev, card)
+    nerf_times = time_nerf(dev, card)
     # after cuda_launches: a profile taken before it cost that count its launches
     profile_chunk(runner)
     profile_difference(*(profile_step(r) for r in (runner, ft_runner)))
@@ -2646,6 +2863,19 @@ def main() -> int:
         "plain_ms": adam_times["ms"]["plain"], "flat_plain_ms": adam_times["ms"]["flat_plain"],
         "bound_ms": adam_times["ms"]["bound"], "bound_by": "bytes",
         "bytes": adam_times["bytes"], "library_ms": None,
+    })
+    kernels.append({
+        "name": "nerf_mlp", "route": "cuda", "source": "neuraludf_tpu_torch/csrc/nerf_mlp.cu",
+        "replaces": None,  # the JAX package leaves the background NeRF to XLA
+        "launches_by_path": {k: by_path(k) for k in ("K4f", "K4b")},
+        "window_launches": {p: {k: window[p]["launches"][k] for k in ("K4f", "K4b")}
+                            for p in window},
+        "cuda_launches_per_call": nerf["cuda_launches"],
+        "checked_at": [f"{n} rows, forward and backward in a CUDA graph"
+                       for n in (N_NERF_ROWS, N_NERF_VAL_ROWS)],
+        "max_rel_err": {str(n): nerf[n]["max_rel_err"] for n in (N_NERF_ROWS, N_NERF_VAL_ROWS)},
+        "ms": nerf_times["ms"], "bound_ms": nerf_times["bound_ms"], "bound_by": "operations",
+        "share_of_bound": nerf_times["share_of_bound"], "library_ms": None,
     })
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "neuraludf_tpu"))
     if jax_modules:

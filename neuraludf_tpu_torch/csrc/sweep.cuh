@@ -1,0 +1,237 @@
+// Building blocks of the row-tile-resident bf16 wgmma sweeps for Hopper
+// (sm_90a), shared by csrc/fused_distance.cu (K1/K2's tier "default") and
+// csrc/nerf_mlp.cu (K4): cp.async and bulk copies, the wgmma wrappers and
+// shared-memory descriptors, the 128-byte swizzle of a [128 x 64] bf16
+// operand panel, and the ring of weight slices that feeds a sweep's
+// products (sweep_gemm). ops/build.py rebuilds every library when it changes.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define FT 256           // threads of a block: two warpgroups
+#define PANEL 16384      // bytes of a [128 x 64] bf16 operand panel
+#define STAGE 32768      // bytes of a ring stage: a [256 x 64] weight slice
+#define N_STAGES 4
+#define PREFETCH 2       // slices in flight ahead of the tensor cores
+
+struct Slice {  // a [rows x 64] slice of the packed bf16 weights, row stride ld
+  uint32_t off;
+  uint16_t ld, rows;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// makes shared-memory writes of this thread visible to wgmma's reads
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major operands: rows
+// of 128 bytes, 8-row groups sbo bytes apart (lbo unused). MN-major operands:
+// 64 MN-elements a row, 8-row K groups sbo apart, 64-wide MN groups lbo apart.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// byte offset of element (row, col) of a 64-column bf16 panel
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// keeps the compiler from reading accumulators before wgmma_wait
+template <int N>
+__device__ __forceinline__ void acc_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void load_slice(const Slice* tab, int n_slices,
+                                            const __nv_bfloat16* w16, uint32_t idx,
+                                            uint32_t ring, int tid) {
+  const Slice s = tab[idx % n_slices];
+  const uint32_t dst = ring + (idx % N_STAGES) * STAGE;
+  const __nv_bfloat16* src = w16 + s.off;
+  for (int c = tid; c < s.rows * 8; c += FT) {
+    const int row = c >> 3, ch = c & 7;
+    cp_async16(dst + row * 128 + ((ch ^ (row & 7)) << 4), src + (long)row * s.ld + ch * 8);
+  }
+}
+
+// Copies operand panels to device memory with one bulk copy of the async
+// proxy, started by one thread after a fence_async and a barrier: no thread
+// spends instructions on the bytes. bulk_reads_done() before the panels are
+// written again.
+__device__ __forceinline__ void dump_panels(uint32_t src, int panels, uint8_t* dst, int tid) {
+  if (tid == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+                 "r"(src), "r"(panels * PANEL)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_reads_done(int tid) {
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// acc[64 x N] = A[64 x 64 nk] @ B^T over the next nk slices of the ring; A
+// is this warpgroup's rows of the panels panel0 .. panel0 + nk - 1. Slice
+// it + PREFETCH is loaded into the stage that slice it - 2 used: every thread
+// has passed wgmma_wait<1> of iteration it - 1 before the barrier, so the
+// products that read it are done (N_STAGES = PREFETCH + 2).
+template <int N>
+__device__ __forceinline__ void sweep_gemm(float* acc, uint32_t a_wg, int panel0, int nk,
+                                           uint32_t ring, const Slice* tab, int n_slices,
+                                           const __nv_bfloat16* w16, uint32_t& it, int tid) {
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait<PREFETCH - 1>();
+    fence_async();
+    if (j == nk - 1) bulk_reads_done(tid);  // the epilogue may write the panels a dump reads
+    __syncthreads();
+    load_slice(tab, n_slices, w16, it + PREFETCH, ring, tid);
+    cp_async_commit();
+    const uint32_t sb = ring + (it % N_STAGES) * STAGE;
+    const uint32_t sa = a_wg + (panel0 + j) * PANEL;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = make_desc(sa + kk * 32, 16, 1024);
+      const uint64_t db = make_desc(sb + kk * 32, 16, 1024);
+      if constexpr (N == 256) wgmma_n256<0, 0>(acc, da, db, (j | kk) != 0);
+      else if constexpr (N == 128) wgmma_n128<0, 0>(acc, da, db, (j | kk) != 0);
+      else wgmma_n64<0, 0>(acc, da, db, (j | kk) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    ++it;
+  }
+  wgmma_wait<0>();
+  acc_fence<N / 2>(acc);
+}
+
+// one bf16 value, and two, at column col of consecutive panels
+__device__ __forceinline__ void put(uint8_t* panels, int row, int col, float v) {
+  *reinterpret_cast<__nv_bfloat16*>(panels + (col >> 6) * PANEL + swz(row, col & 63)) =
+      __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void put2(uint8_t* panels, int row, int col, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(panels + (col >> 6) * PANEL + swz(row, col & 63)) = pack2(lo, hi);
+}

@@ -24,8 +24,10 @@ from ..config import (
     VarianceConfig,
 )
 from ..numerics import clip
+from ..utils.trace import count
 from .embedder import embed_dim, positional_encoding
-from .mlp import geometric_linear, linear, softplus100, to_weight_norm, torch_default_linear
+from .mlp import (PRECISION_POLICY, geometric_linear, linear, softplus100, to_weight_norm,
+                  torch_default_linear)
 
 Params = Dict[str, Any]
 
@@ -221,7 +223,29 @@ def init_background_nerf(gen: torch.Generator, cfg: NeRFConfig) -> Params:
 def background_nerf_apply(
     params: Params, pts: torch.Tensor, views: Optional[torch.Tensor], cfg: NeRFConfig
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """pts: [N, d_in] (x/r, 1/r), views: [N, 3] -> (raw density [N,1], rgb [N,3])."""
+    """pts: [N, d_in] (x/r, 1/r), views: [N, 3] -> (raw density [N,1], rgb [N,3]).
+
+    CUDA tensors of the network K4 takes (ops/nerf_mlp) at the "bf16" policy
+    go through its kernels, when neither pts nor views wants a gradient;
+    everything else takes ``background_nerf_apply_plain``."""
+    if pts.is_cuda:
+        from ..ops import nerf_mlp
+
+        if (views is not None and PRECISION_POLICY["nerf"] == "bf16"
+                and nerf_mlp.nerf_kernel_takes(cfg)
+                and not (pts.requires_grad or views.requires_grad)):
+            layers = nerf_mlp.layer_params(params)
+            if layers is not None:
+                return nerf_mlp.nerf_apply(*layers, pts, views)
+        count("nerf.plain")
+    return background_nerf_apply_plain(params, pts, views, cfg)
+
+
+def background_nerf_apply_plain(
+    params: Params, pts: torch.Tensor, views: Optional[torch.Tensor], cfg: NeRFConfig
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The background model layer by layer in PyTorch (``linear`` at the
+    "nerf" precision policy)."""
     h_in = positional_encoding(pts, cfg.multires) if cfg.multires > 0 else pts
     h = h_in
     for i in range(cfg.D):

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for sm_90a into ``build/kernels/lib<name>_<hash>.so`` (the hash
-is of the source, so an edited source is rebuilt) and loaded with ctypes.
+is of the source and of the headers ``csrc/*.cuh``, so an edited source or
+header is rebuilt) and loaded with ctypes.
 The callers set the argument types of the functions they call. A failed
 build raises; nothing falls back.
 """
@@ -31,8 +32,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what a source may include
+        h.update(header.read_bytes())
+    return BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def compile_sources(names: Sequence[str]) -> Dict[str, Path]:

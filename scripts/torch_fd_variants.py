@@ -197,7 +197,8 @@ def build_variant(root: Path, out: Path, name: str, subs) -> Path:
         src = src.replace(old, new)
     (out / f"{name}.cu").write_text(src)
     lib = out / f"lib{name}.so"
-    r = nvcc(["-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(out / f"{name}.cu")])
+    r = nvcc(["-shared", "-Xcompiler", "-fPIC", "-I", str(root / "neuraludf_tpu_torch" / "csrc"),
+              "-o", str(lib), str(out / f"{name}.cu")])
     if r.returncode:
         raise SystemExit(f"variant {name} does not build:\n{r.stderr[-3000:]}")
     return lib
