@@ -63,10 +63,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    eager step body, three runners on one start state and generator state:
    the graphed run's launch counts (K1 = K2 = 50, K3 = 50 in the finetune),
    its metric rows, parameters and generator state against the eager run's
-   (``TOL_WINDOW``); then 5 repeats of 20 steps each, graphed against eager,
-   ended by a synchronize (median and spread of ms a step), the device-busy
-   share and kernel count of a replayed step (torch.profiler), and the
-   memory the graph's pool takes;
+   (``TOL_WINDOW``), and the memory the graph's pool takes (the benchmark's
+   cells time the windows);
 9b. ``[high]``, ``[highest]``: both training paths again at
    ``fused_precision = "high"`` and ``"highest"``, one window of 50 steps
    each from the stage-1 checkpoint, at full width, with the same launch
@@ -98,10 +96,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
     finetune scans resumed from the stage-1 checkpoint, K3 in each (K1 = K2
     = 50 S, K3 = 50 S in the finetune); each scan's metric rows, parameters,
     optimizer state and generator against a single-scan Runner(seed + i)
-    through its graphed window on scan i's views, bit for bit; then 5 x 20
-    timed multi-scan iterations at S = 1, 2, 4, 8 (the scans as branches on
-    side streams of one graph): ms an iteration against S x the single
-    graphed step of ``[window]``, scan-steps/s, S x the kernel time of one
+    through its graphed window on scan i's views, bit for bit, the
+    campaign's window on S branch streams and the single scan's on none;
+    then 5 x 20 timed iterations of ``TrainWindow`` at S = 1, 2, 4, 8 (the
+    scans as branches on side streams of one graph): ms an iteration
+    against S x the iteration at S = 1, scan-steps/s, S x the kernel time of one
     scan's iteration (from the profile at S = 1) over the timed iteration,
     the kernels' summed and covered time under the profiler (which slows
     the branches), the graph pool's memory;
@@ -118,9 +117,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     garment: K1/K2 at "default" on the garment step's 73,728 rows against
     their plain versions; 150 graphed stage-1 steps and 50 steps of the
     garment finetune (``is_finetune``; its pixel and patch weights are 0, so
-    K3 reads 0), K1 = K2 = one a step, finite and falling losses; 5 x 20
-    graphed garment steps against the DTU stage-1 step in turns, the
-    replayed step's kernels and busy share; the protocol's extraction at
+    K3 reads 0), K1 = K2 = one a step, finite and falling losses, K1 = K2
+    = one a replayed step of a graphed window; the protocol's extraction at
     128³ of the stage-1 and the finetuned field, and the DF3D score of the
     stage-1 one (a record, no bound);
 11d. ``[bmvs]``: the committed BlendedMVS-layout scene (``tests/data/bmvs_sphere``,
@@ -135,8 +133,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
     the DTU tree, each a graph of 10 updates; of K4 at a step's rows (its
     forward with and without what the backward reads, its backward, both
     under autograd) and of the plain chain; the profile
-    of one validation chunk; the profile of a steady eager step of each
-    path.
+    of one validation chunk.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -1340,59 +1337,6 @@ def differences(rows_a, rows_b, runner_a, runner_b) -> dict:
                                             runner_b.generator.get_state())}
 
 
-def time_windows(g_runner, e_runner, card) -> dict:
-    """Host-clock ms a step of TIMED_REPEATS repeats of TIMED_STEPS
-    iterations, graphed (a window of TIMED_STEPS, captured before the
-    timing) against eager, alternating, each ended by a synchronize."""
-    scheds, rows, idxs = window_inputs(g_runner, TIMED_STEPS)
-    graphed_steps(g_runner, scheds, rows, idxs)  # warm-up and capture
-    eager_steps(e_runner, scheds[:1], rows[:1], idxs[:1])
-    times = {"graphed": [], "eager": []}
-    for _ in range(TIMED_REPEATS):
-        for name, run, r in (("graphed", graphed_steps, g_runner),
-                             ("eager", eager_steps, e_runner)):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            run(r, scheds, rows, idxs)
-            torch.cuda.synchronize()
-            times[name].append((time.time() - t0) / TIMED_STEPS * 1e3)
-    out = {}
-    for name, ts in times.items():
-        med = sorted(ts)[len(ts) // 2]
-        out[name] = {"median_ms": med, "min_ms": min(ts), "max_ms": max(ts), "ms": ts,
-                     "rays_per_s": g_runner.cfg.train.batch_size / med * 1e3}
-        log(f"[window] {g_runner.cfg.general.expname} {name} step: median {med:.2f} ms "
-            f"(min {min(ts):.2f}, max {max(ts):.2f}; {TIMED_REPEATS} x {TIMED_STEPS} steps) = "
-            f"{out[name]['rays_per_s']:.0f} rays/s  [{card}]")
-    return out
-
-
-def profile_window(runner, card) -> dict:
-    """Device time and kernel count a step inside graph replays
-    (torch.profiler over one captured window of TIMED_STEPS), against the
-    host clock."""
-    from torch.profiler import ProfilerActivity, profile
-
-    scheds, rows, idxs = window_inputs(runner, TIMED_STEPS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        graphed_steps(runner, scheds, rows, idxs)
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3 / TIMED_STEPS
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / TIMED_STEPS
-    count = sum(e.count for e in kern) / TIMED_STEPS
-    if busy == 0:
-        log("[window] the profiler saw no device time inside the replays: not measured")
-        return {"wall_ms": wall_ms, "busy_ms": None, "busy_share": None, "kernels": None}
-    log(f"[window] {runner.cfg.general.expname} replayed step under the profiler: {count:.0f} "
-        f"kernels, device busy {busy:.2f} of {wall_ms:.2f} ms (busy share "
-        f"{busy / wall_ms:.2f})  [{card}]")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms, "kernels": count}
-
-
 def check_window_tolerance(graphed: dict, run_to_run: dict) -> None:
     """TOL_WINDOW, against the eager loop's own spread from run to run."""
     if not (graphed["generators_equal"] and run_to_run["generators_equal"]):
@@ -1413,9 +1357,8 @@ def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finet
     """[window]: WINDOW_STEPS iterations from ``ckpt`` through the graphed
     window (its warm-up and capture included) and through the eager loop,
     two runners on one start state and generator state; launch counts of the
-    graphed run (once a step for each kernel of ``on_path``); the compare;
-    then step times, the replayed step's device-busy share, and the graph
-    pool's memory."""
+    graphed run (once a step for each kernel of ``on_path``), the graph
+    pool's memory; the compare."""
     from neuraludf_tpu_torch.train.runner import Runner
 
     g_runner, e_runner, e2_runner = (Runner(cfg, device=dev, seed=seed, is_finetune=is_finetune)
@@ -1454,9 +1397,6 @@ def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finet
     for name in ("graphed_vs_eager", "eager_vs_eager"):
         log(f"[window] {cfg.general.expname} {name} over {WINDOW_STEPS} steps: {out[name]}")
     check_window_tolerance(out["graphed_vs_eager"], out["eager_vs_eager"])
-    del e2_runner
-    out["times"] = time_windows(g_runner, e_runner, card)
-    out["profile"] = profile_window(g_runner, card)
     return out
 
 
@@ -1999,64 +1939,6 @@ def route_bound_ms(nbytes: float, flops: float, route: str) -> float:
     return max(nbytes / PEAK_BYTES, passes * flops / peak) * 1e3
 
 
-def steady_body(runner):
-    """The eager step body and schedule values of the runner's current
-    iteration."""
-    s = runner._schedules_at(runner.iter_step)
-    return runner.step_body(s), dataclasses.asdict(s)
-
-
-def profile_step(runner, n_steps: int = 5, top: int = 14) -> dict:
-    """Device time by kernel over a few steady eager steps (torch.profiler),
-    and the share of them the device was busy. Returns kernel name -> (ms
-    per step, launches per step)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    body, sched = steady_body(runner)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for i in range(n_steps):
-            body(runner.params, runner.opt_state, runner.dataset.scene, i, sched,
-                 runner.generator)
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    # kernels only: the operator rows repeat the device time of their kernels
-    rows = sorted(((e.self_device_time_total / 1e3 / n_steps, e.count / n_steps, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    if busy == 0:
-        log("[profile] the profiler saw no device time: not measured")
-        return {}
-    log(f"[profile] {runner.cfg.general.expname} per step: {sum(r[1] for r in rows):.0f} "
-        f"kernel launches, device busy "
-        f"{busy:.2f} ms of {wall_ms / n_steps:.2f} ms wall (idle share "
-        f"{1 - busy * n_steps / wall_ms:.2f}, under the profiler)")
-    # the top rows, and the port's own kernels wherever they rank
-    own = ("sweep_kernel", "wgrad_kernel", "pack_bf16_kernel", "reduce_kernel", "gemm_kernel",
-           "colsum_kernel", "pe_kernel", "ss_kernel")
-    for rank, (ms, count, key) in enumerate(rows):
-        if rank < top or key.startswith(own) or key.startswith(tuple("void " + o for o in own)):
-            log(f"  {ms:8.3f} ms  x{count:<6.0f} {key[:90]}")
-    return {key: (ms, count) for ms, count, key in rows}
-
-
-def profile_difference(base: dict, other: dict, top: int = 10) -> None:
-    """The kernels whose device time per step differs most between two
-    profiles: what the finetune step adds to the stage-1 step."""
-    if not base or not other:
-        return
-    diff = sorted(((other.get(k, (0.0, 0))[0] - base.get(k, (0.0, 0))[0],
-                    other.get(k, (0.0, 0))[1] - base.get(k, (0.0, 0))[1], k)
-                   for k in set(base) | set(other)), reverse=True)
-    log(f"[profile] finetune step minus stage-1 step: "
-        f"{sum(d[0] for d in diff):+.2f} ms, {sum(d[1] for d in diff):+.0f} launches; largest:")
-    for ms, count, key in diff[:top]:
-        log(f"  {ms:+8.3f} ms  x{count:<+6.0f} {key[:90]}")
-
-
 def scan_views(i: int, n_img: int, steps: int) -> torch.Tensor:
     """Scan i's views of its first ``steps`` iterations (the multi-scan
     runner's stream, np.random.RandomState(i))."""
@@ -2090,10 +1972,10 @@ def multi_scan_run(cfg, scene_dir, out_dir, n_scans, dev, counters, on_path, *, 
     """[multi_scan] main path: MultiScanRunner.train of n_scans scans of the
     sphere for MS_STEPS iterations (resumed from ``ckpt`` for a finetune),
     launch counts set to 0 just before and read just after (S launches of
-    each kernel of ``on_path`` an iteration); then each scan against a
-    single-scan Runner(seed + i) through its graphed window on scan i's
-    views: metric rows, parameters, optimizer and generator state bit for
-    bit."""
+    each kernel of ``on_path`` an iteration), its window's S branch streams;
+    then each scan against a single-scan Runner(seed + i) through its
+    graphed window on scan i's views, which forks no branch stream: metric
+    rows, parameters, optimizer and generator state bit for bit."""
     import shutil
 
     from neuraludf_tpu_torch.parallel.multi_scan import MultiScanRunner
@@ -2125,6 +2007,10 @@ def multi_scan_run(cfg, scene_dir, out_dir, n_scans, dev, counters, on_path, *, 
         raise AssertionError(f"[multi_scan] kernels {on_path} did not run once a scan and "
                              f"iteration: {launches}, {n_scans} x {n_steps}")
     launches["Adam"] = check_adam_launched(adam_before, n_scans * n_steps, "multi_scan")
+    branches = [len(w.branches or ()) for w in ms._window_fns.values()]
+    if branches != [n_scans]:
+        raise AssertionError(f"[multi_scan] not one window of {n_scans} branch streams: "
+                             f"{branches}")
     equal = []
     for i, scan in enumerate(ms.scans):
         rows = jsonl_rows(Path(scan.base_exp_dir) / "logs" / "metrics.jsonl")[-n_steps:]
@@ -2142,6 +2028,8 @@ def multi_scan_run(cfg, scene_dir, out_dir, n_scans, dev, counters, on_path, *, 
                         torch.from_numpy(schedules.schedule_rows(scheds)).to(dev)).cpu()
         want = [{"iter": first + 1 + j, **dict(zip(METRIC_KEYS, got[j].tolist()))}
                 for j in range(n_steps)]
+        if window_fn.branches is not None:
+            raise AssertionError("[multi_scan] a one-scan window forked a branch stream")
         equal.append(rows == want and same_state(scan, single))
         del single, window_fn
     log(f"[multi_scan] each scan against its single-scan graphed run, bit for bit: {equal}")
@@ -2170,13 +2058,13 @@ def device_cover(prof) -> tuple:
     return total / 1e3, cover / 1e3
 
 
-def time_multi_scan(cfg, ckpt, scene, dev, card, single_ms) -> dict:
-    """Timed multi-scan windows at MS_SWEEP scans, every scan from the
-    stage-1 checkpoint with a generator of its own seed: a window of
-    TIMED_STEPS iterations, whose first call (warm-up and capture) gives the
-    graph pool's memory, then TIMED_REPEATS timed calls ended by a
+def time_multi_scan(cfg, ckpt, scene, dev, card) -> dict:
+    """Timed windows of MS_SWEEP scans (``TrainWindow`` of S scans), every
+    scan from the stage-1 checkpoint with a generator of its own seed: a
+    window of TIMED_STEPS iterations, whose first call (warm-up and capture)
+    gives the graph pool's memory, then TIMED_REPEATS timed calls ended by a
     synchronize (ms a multi-scan iteration, scan-steps/s, against S x the
-    single graphed step ``single_ms``); then, that window freed, a window of
+    one-scan window's iteration, S = 1); then, that window freed, a window of
     PROFILE_STEPS under the profiler: the summed kernel time and the time
     covered by a kernel against the host clock. The profiler stretches
     concurrent branches, so the profiled iteration is slower than the timed
@@ -2185,10 +2073,9 @@ def time_multi_scan(cfg, ckpt, scene, dev, card, single_ms) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from neuraludf_tpu_torch import convert
-    from neuraludf_tpu_torch.parallel.multi_scan import MultiScanWindow
     from neuraludf_tpu_torch.render.renderer import UDFRenderer
     from neuraludf_tpu_torch.train import schedules
-    from neuraludf_tpu_torch.train.step import build_step_body
+    from neuraludf_tpu_torch.train.step import TrainWindow, build_step_body
 
     c = cfg.color_loss
     sched = schedules.compute_step_schedules(
@@ -2203,7 +2090,7 @@ def time_multi_scan(cfg, ckpt, scene, dev, card, single_ms) -> dict:
         gens = [torch.Generator(device=dev).manual_seed(100 + i) for i in range(S)]
 
         def window_call(steps: int):
-            window = MultiScanWindow(cfg, body, steps, 1, S)
+            window = TrainWindow(cfg, body, steps, 1, S).call_scans
             rows = torch.from_numpy(schedules.schedule_rows([sched] * (steps * S))).reshape(
                 steps, S, -1).to(dev)
             idxs = (torch.arange(steps * S, device=dev) % 16).reshape(steps, S)
@@ -2240,6 +2127,7 @@ def time_multi_scan(cfg, ckpt, scene, dev, card, single_ms) -> dict:
         if not summed:
             raise AssertionError(f"[multi_scan] S={S}: the profiler saw no kernel")
         med = sorted(ts)[len(ts) // 2]
+        single_ms = out[1]["median_ms"] if 1 in out else med
         # S scans' kernel time, each at its time alone, over the timed iteration
         overlap = S * out[1]["kernel_ms_summed"] / med if 1 in out else summed / med
         out[S] = {"median_ms": med, "min_ms": min(ts), "max_ms": max(ts), "ms": ts,
@@ -2249,7 +2137,7 @@ def time_multi_scan(cfg, ckpt, scene, dev, card, single_ms) -> dict:
                   "graph_pool_gib": pool_gib}
         log(f"[multi_scan] S={S}: median {med:.2f} ms an iteration (min {min(ts):.2f}, max "
             f"{max(ts):.2f}), {S / med * 1e3:.1f} scan-steps/s, {med / (S * single_ms):.3f} of S "
-            f"x the single graphed step ({S * single_ms:.2f} ms); S x one scan's kernel time "
+            f"x the one-scan iteration ({S * single_ms:.2f} ms); S x one scan's kernel time "
             f"over it {overlap:.3f}; under the profiler kernels {summed:.2f} ms summed, covered "
             f"{busy:.2f} of {wall:.2f} ms; graph pool {pool_gib:.2f} GiB "
             f"({time.time() - t_start:.0f} s)  [{card}]")
@@ -2258,7 +2146,7 @@ def time_multi_scan(cfg, ckpt, scene, dev, card, single_ms) -> dict:
     return out
 
 
-def check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card, single_ms):
+def check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card):
     """[multi_scan]: the stage-1 and finetune multi-scan runs against their
     single-scan runs, then the timed sweep."""
     from neuraludf_tpu_torch.data.dataset import Dataset
@@ -2270,8 +2158,7 @@ def check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card,
                ft_cfg.train, end_iter=MS_STEPS, save_freq=MS_STEPS, report_freq=MS_STEPS)),
                scene_dir, exp_dir / "multi_scan_ft", MS_FT_SCANS, dev, counters,
                DTU_PATH + ("K3",), seed=1, is_finetune=True, ckpt=ckpt)}
-    out["sweep"] = time_multi_scan(cfg, ckpt, Dataset(cfg.dataset, dev).scene, dev, card,
-                                   single_ms)
+    out["sweep"] = time_multi_scan(cfg, ckpt, Dataset(cfg.dataset, dev).scene, dev, card)
     return out
 
 
@@ -2364,18 +2251,17 @@ def grid_udf(runner) -> torch.Tensor:
                           GARMENT_MESH_RES)
 
 
-def check_garment(dtu_cfg, ckpt, dev, counters, card) -> dict:
+def check_garment(dev, counters) -> dict:
     """[garment]: the DeepFashion3D recipe at full width through
     scripts/torch_benchmark_garment.py's functions (scene, configurations,
     score): K1/K2 at "default" on the garment step's N_GARMENT_POINTS rows
     against both plain versions; GARMENT_STEPS graphed stage-1 steps and
     GARMENT_FT_STEPS finetune steps, K1 = K2 = one a step and K3 never (the
     garment finetune blends no pixels or patches), finite and falling
-    losses; each stage's geometry moved by a grid voxel; the graphed
-    garment step against the DTU stage-1 step (``dtu_cfg`` from ``ckpt``)
-    in turns, with its kernels and busy share a replay; the extraction at
-    GARMENT_MESH_RES of both fields, each with faces, and the DF3D score of
-    the finetuned one."""
+    losses; each stage's geometry moved by a grid voxel; K1 and K2 once a
+    replayed step of a graphed window; the extraction at GARMENT_MESH_RES
+    of both fields, each with faces, and the DF3D score of the finetuned
+    one."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch_benchmark_garment as garment
 
@@ -2432,25 +2318,21 @@ def check_garment(dtu_cfg, ckpt, dev, counters, card) -> dict:
     if not min(out["grid"]["moved"].values()) > voxel:
         raise AssertionError(f"[garment] a stage's geometry did not train: {out['grid']}")
 
-    # the garment step against the DTU stage-1 step, each graphed, in turns
-    timed_cfg = dataclasses.replace(cfg, general=dataclasses.replace(
-        cfg.general, base_exp_dir=str(exp_dir / "timed")))
-    g_runner = Runner(timed_cfg, seed=0, reg_weights_schedule=True, device=dev)
+    # a graphed window from the stage-1 checkpoint: K1 and K2 once a replayed step
+    replay_cfg = dataclasses.replace(cfg, general=dataclasses.replace(
+        cfg.general, base_exp_dir=str(exp_dir / "replayed")))
+    g_runner = Runner(replay_cfg, seed=0, reg_weights_schedule=True, device=dev)
     g_runner.load_checkpoint(stage1_ckpt)
-    d_runner = Runner(dtu_cfg, seed=0, device=dev)
-    d_runner.load_checkpoint(ckpt)
-    times = time_in_turns({"garment stage-1 step": g_runner, "DTU stage-1 step": d_runner},
-                          "garment", card)
-    out["times"] = {"garment": times["garment stage-1 step"], "dtu": times["DTU stage-1 step"]}
+    graphed_steps(g_runner, *window_inputs(g_runner, TIMED_STEPS))  # warm-up and capture
     for k in counters.values():
         k.launches = 0
-    out["profile"] = profile_window(g_runner, card)
+    graphed_steps(g_runner, *window_inputs(g_runner, TIMED_STEPS))
     out["launches_per_replay"] = {n: k.launches / TIMED_STEPS for n, k in counters.items()}
     log(f"[garment] launches a replayed step: {out['launches_per_replay']}")
     if out["launches_per_replay"] != {"K1": 1.0, "K2": 1.0, "K3": 0.0, "K4f": 0.0, "K4b": 0.0}:
         raise AssertionError(f"[garment] K1/K2 not once a replayed step: "
                              f"{out['launches_per_replay']}")
-    del g_runner, d_runner
+    del g_runner
     torch.cuda.empty_cache()
 
     stage1_faces = len(load_ply(runner.extract_udf_mesh(
@@ -2708,8 +2590,7 @@ def main() -> int:
     t0 = time.time()
     log(f"[multi_scan] {MS_SCANS} stage-1 scans, {MS_FT_SCANS} finetune scans, the sweep over "
         f"{MS_SWEEP} scans")
-    multi = check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card,
-                             window["stage1"]["times"]["graphed"]["median_ms"])
+    multi = check_multi_scan(cfg, ft_cfg, ckpt, scene_dir, exp_dir, dev, counters, card)
     log(f"[multi_scan] ok in {time.time() - t0:.1f} s")
     t0 = time.time()
     dp = check_dp(config_mod.load(str(CONF), **common), ckpt, dev, counters, card, exp_dir)
@@ -2718,9 +2599,8 @@ def main() -> int:
 
     t0 = time.time()
     log(f"[garment] the DeepFashion3D recipe: {GARMENT_STEPS} stage-1 and {GARMENT_FT_STEPS} "
-        f"finetune steps on a {GARMENT_VIEWS}-view garment, timed, extracted, scored")
-    garment = check_garment(config_mod.load(str(CONF), **dict(
-        common, general__base_exp_dir=str(exp_dir / "garment_dtu"))), ckpt, dev, counters, card)
+        f"finetune steps on a {GARMENT_VIEWS}-view garment, extracted, scored")
+    garment = check_garment(dev, counters)
     log(f"[garment] ok in {time.time() - t0:.1f} s")
     t0 = time.time()
     bmvs = check_bmvs(dev, counters, card)
@@ -2736,7 +2616,6 @@ def main() -> int:
     nerf_times = time_nerf(dev, card)
     # after cuda_launches: a profile taken before it cost that count its launches
     profile_chunk(runner)
-    profile_difference(*(profile_step(r) for r in (runner, ft_runner)))
 
     tier = ucfg.fused_precision  # the main paths' tier
     by_path = lambda k: {"stage1": launches_stage1[k], "finetune": launches_ft[k],

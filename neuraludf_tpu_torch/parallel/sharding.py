@@ -105,8 +105,6 @@ def build_parallel_train_window(cfg: Config, renderer: UDFRenderer, group=None, 
     it). Drop the window before destroying the process group: NCCL keeps
     a communicator while a graph holding its collectives lives, and
     ``destroy_process_group`` then never returns."""
-    if unroll < 1 or window % unroll != 0:
-        raise ValueError(f"unroll {unroll} must divide window {window}")
     return TrainWindow(cfg, build_parallel_train_step(cfg, renderer, group, blending=blending),
                        window, unroll)
 

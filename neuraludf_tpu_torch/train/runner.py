@@ -3,15 +3,14 @@
 
 The host computes the schedules, drives the beta/variance trainability
 state machine, logs, and saves checkpoints. Training runs in windows of
-iterations, as the JAX runner's: a full window whose iterations share one
-step body goes through ``step.build_train_window`` (on a CUDA device,
-replays of a captured CUDA graph); a window where blending switches on, a
-shorter last window, and blending windows without
-``train.blend_scan_window`` step one eager iteration at a time. Either way
-a window's schedules and views go to the device at once, its metrics come
-back in one transfer, and every iteration's scalars go to
-``<exp>/logs/metrics.jsonl``; a ``StallWatchdog`` warns when no window ends
-for ``train.stall_warn_s`` seconds. Every ``val_freq`` iterations the runner
+iterations, as the JAX runner's, through ``train_scans``: the one loop of a
+single scan (``Runner.train``) and of S scans at once
+(``parallel.multi_scan.MultiScanRunner``). A full window whose iterations
+share one step body goes through ``step.TrainWindow`` (on a CUDA device,
+replays of a captured CUDA graph); other windows step one eager iteration
+at a time. Either way a window's schedules and views go to the device at
+once, its metrics come back in one transfer, and every iteration's scalars
+go to ``<exp>/logs/metrics.jsonl``. Every ``val_freq`` iterations the runner
 renders a validation view (``validate``: colour, pixel-blended colour,
 normals, depth), every ``val_mesh_freq`` iterations it writes the classic
 and the MeshUDF mesh of the field (``validate_mesh``, ``extract_udf_mesh``),
@@ -22,7 +21,9 @@ validation render moves to the host once per window of up to 8 chunks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import logging
 import math
@@ -30,7 +31,7 @@ import os
 import pickle
 import shutil
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -102,6 +103,120 @@ def resolve_device(name: str) -> torch.device:
     return default_device(dev.index or 0) if dev.type == "cuda" else dev
 
 
+def cached_window(cache: Dict[tuple, Any], cfg: Config, renderer: UDFRenderer, blending: bool,
+                  window: int, build: Callable, **kw):
+    """The window of ``window`` iterations of one body in ``cache``, made by
+    ``build`` (and on a CUDA device captured) at first use;
+    ``train.scan_unroll`` step bodies a graph, lowered to a divisor of the
+    window."""
+    unroll = max(u for u in range(1, max(1, cfg.train.scan_unroll) + 1) if window % u == 0)
+    key = (blending, window, unroll)
+    if key not in cache:
+        cache[key] = build(cfg, renderer, blending=blending, window=window, unroll=unroll, **kw)
+    return cache[key]
+
+
+def scan_schedules(scans: Sequence["Runner"], start: int, k: int, device):
+    """The schedules of every scan at iterations start .. start + k - 1
+    (each scan's own train config and trainability), [k][S], and their rows
+    [k, S, len(SCHEDULE_KEYS)] on ``device``."""
+    scheds = [[r._schedules_at(start + j) for r in scans] for j in range(k)]
+    rows = sched_mod.schedule_rows([s for step in scheds for s in step]).reshape(k, len(scans), -1)
+    return scheds, torch.from_numpy(rows).to(device)
+
+
+def image_order(n_img: int, rng: np.random.RandomState, start: int):
+    """The views of iterations start, start + 1, ...: permutations of
+    ``rng``, one a pass over the views, replayed up to ``start``."""
+    perm = rng.permutation(n_img)
+    for _ in range(start // n_img):
+        perm = rng.permutation(n_img)
+    for step in itertools.count(start):
+        yield perm[step % n_img]
+        if (step + 1) % n_img == 0:
+            perm = rng.permutation(n_img)
+
+
+def train_scans(owner, scans: Sequence["Runner"], report_hook=None) -> None:
+    """The training loop of ``Runner.train`` (``scans`` is ``[owner]``) and
+    of ``MultiScanRunner.train``: every scan to ``owner.end_iter`` in windows
+    of ``_window_size`` iterations, scan i's views in the order of
+    ``np.random.RandomState(i)``, each iteration's metrics to its scan's
+    ``logs/metrics.jsonl`` and trainability (``owner._crash`` where the loss
+    is not finite), a report every ``report_freq`` iterations
+    (``owner._report`` with the rate since this call's previous one; what it
+    returns goes to ``report_hook(it, metrics)``), each scan's periodic
+    actions after a window, and a ``StallWatchdog``."""
+    tcfg = owner.cfg.train
+    views = [image_order(r.dataset.n_images, np.random.RandomState(i), owner.iter_step)
+             for i, r in enumerate(scans)]
+    window = scans[0]._window_size()
+    rate_mark = None  # a train call's first report gives no rate
+    with contextlib.ExitStack() as stack:
+        watchdog = StallWatchdog(tcfg.stall_warn_s, tag_fn=lambda: f"iter {owner.iter_step}")
+        stack.callback(watchdog.start().stop)
+        logs = []
+        for r in scans:
+            os.makedirs(os.path.join(r.base_exp_dir, "logs"), exist_ok=True)
+            logs.append(stack.enter_context(
+                open(os.path.join(r.base_exp_dir, "logs", "metrics.jsonl"), "a")))
+        while owner.iter_step < owner.end_iter:
+            with span("runner.window"):
+                k = min(window, owner.end_iter - owner.iter_step)
+                with span("runner.schedules"):
+                    img_idxs = np.array([[next(v) for v in views] for _ in range(k)], np.int64)
+                mat = _train_window(owner, scans, k, window, img_idxs)
+                with span("runner.fetch"):
+                    mat = mat.cpu().numpy()
+                watchdog.beat()
+                with span("runner.log"):
+                    for j in range(k):
+                        it = owner.iter_step - k + 1 + j
+                        for i, (r, f) in enumerate(zip(scans, logs)):
+                            m = dict(zip(METRIC_KEYS, mat[j, i].tolist()))
+                            f.write(json.dumps({"iter": it, **m}) + "\n")
+                            if not np.isfinite(m["loss"]):
+                                owner._crash(it, i, m)
+                            r.update_trainability(it, m)
+                        if it % tcfg.report_freq == 0:
+                            ips, rate_mark = iter_rate(rate_mark, it)
+                            m = owner._report(it, mat[j], rate_text(ips))
+                            if report_hook:
+                                report_hook(it, m)
+                    for f in logs:
+                        f.flush()
+                with span("runner.periodic"):
+                    for r in scans:
+                        r._periodic_actions(k)
+
+
+def _train_window(owner, scans: Sequence["Runner"], k: int, window: int,
+                  img_idxs: np.ndarray) -> torch.Tensor:
+    """k iterations of every scan (views img_idxs [k, S]): metric rows [k,
+    S, M] on the device. A full window of one body goes through
+    ``owner._get_window_fn``; a window where blending switches on (in every
+    scan at once), a shorter last window, and blending windows without
+    ``train.blend_scan_window`` step each scan one iteration at a time."""
+    with span("runner.schedules"):
+        scheds, rows = scan_schedules(scans, owner.iter_step, k, owner.device)
+        idxs = torch.from_numpy(img_idxs).to(owner.device)
+    first, last = sched_mod.is_blending(scheds[0][0]), sched_mod.is_blending(scheds[-1][0])
+    if first == last and k == window and (owner.cfg.train.blend_scan_window or not first):
+        mat = owner._call_window(owner._get_window_fn(first, k), idxs, rows)
+    else:
+        out = []
+        for j in range(k):
+            for i, r in enumerate(scans):
+                m = r.step_body(scheds[j][i])(r.params, r.opt_state, r.dataset.scene,
+                                              idxs[j, i], rows[j, i], r.generator)
+                out.append(torch.stack([m[name] for name in METRIC_KEYS]))
+        mat = torch.stack(out).view(k, len(scans), -1)
+    owner.iter_step += k
+    for r in scans:
+        r.iter_step = owner.iter_step
+    return mat
+
+
 class Runner:
     def __init__(self, cfg: Config, mode: str = "train", *, is_continue: bool = False,
                  is_finetune: bool = False, reg_weights_schedule: bool = False,
@@ -146,7 +261,6 @@ class Runner:
         self._step_bodies = {}
         self._window_fns = {}  # (blending, window, unroll) -> step.TrainWindow
         self._mesh_caches = {}  # resolution -> incremental extraction cache
-        self._rate_mark = None  # (iteration, time) of train's previous report
 
         if is_continue:
             latest = self._latest_checkpoint()
@@ -263,92 +377,37 @@ class Runner:
         return self._step_bodies[blending]
 
     def _get_window_fn(self, blending: bool, window: int):
-        """The window of ``window`` iterations of one body, built (and on a
-        CUDA device captured) at first use; ``train.scan_unroll`` step bodies
-        a graph, lowered to a divisor of the window."""
-        unroll = max(1, self.cfg.train.scan_unroll)
-        while window % unroll != 0:
-            unroll -= 1
-        key = (blending, window, unroll)
-        if key not in self._window_fns:
-            self._window_fns[key] = build_train_window(self.cfg, self.renderer,
-                                                       blending=blending, window=window,
-                                                       unroll=unroll)
-        return self._window_fns[key]
+        """The window of ``window`` iterations of one body (``cached_window``),
+        called in its one-scan form."""
+        return cached_window(self._window_fns, self.cfg, self.renderer, blending, window,
+                             build_train_window)
 
     def train(self, report_hook=None):
-        """Trains to ``end_iter``. ``report_hook(it, metrics)`` is called every
-        ``report_freq`` iterations with that iteration's metric floats."""
-        n_img = self.dataset.n_images
-        perm_rng = np.random.RandomState(0)
-        image_perm = perm_rng.permutation(n_img)
-        # resume: replay the permutation stream up to iter_step
-        for _ in range(self.iter_step // n_img):
-            image_perm = perm_rng.permutation(n_img)
+        """Trains to ``end_iter`` (``train_scans`` over this one scan).
+        ``report_hook(it, metrics)`` is called every ``report_freq``
+        iterations with that iteration's metric floats."""
+        train_scans(self, [self], report_hook)
 
-        def next_img_indices(k: int) -> np.ndarray:
-            nonlocal image_perm
-            out = np.empty((k,), np.int64)
-            for j in range(k):
-                step = self.iter_step + j
-                out[j] = image_perm[step % n_img]
-                if (step + 1) % n_img == 0:
-                    image_perm = perm_rng.permutation(n_img)
-            return out
+    def _call_window(self, window_fn, idxs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """``train_scans``'s window of this scan (idxs [k, 1], rows [k, 1,
+        K]) through its one-scan call: metric rows [k, 1, M]."""
+        return window_fn(self.params, self.opt_state, self.dataset.scene, idxs[:, 0],
+                         self.generator, rows[:, 0])[:, None]
 
-        window = self._window_size()
-        log_dir = os.path.join(self.base_exp_dir, "logs")
-        os.makedirs(log_dir, exist_ok=True)
-        self._rate_mark = None  # a train call's first report gives no rate
-        watchdog = StallWatchdog(self.cfg.train.stall_warn_s,
-                                 tag_fn=lambda: f"iter {self.iter_step}").start()
-        try:
-            with open(os.path.join(log_dir, "metrics.jsonl"), "a") as metrics_log:
-                while self.iter_step < self.end_iter:
-                    with span("runner.window"):
-                        k = min(window, self.end_iter - self.iter_step)
-                        with span("runner.schedules"):
-                            img_idxs = next_img_indices(k)
-                        mat = self._train_window(k, window, img_idxs)
-                        with span("runner.fetch"):
-                            mat = mat.cpu().numpy()
-                        watchdog.beat()
-                        with span("runner.log"):
-                            for j in range(k):
-                                it = self.iter_step - k + 1 + j
-                                m = dict(zip(METRIC_KEYS, mat[j].tolist()))
-                                metrics_log.write(json.dumps({"iter": it, **m}) + "\n")
-                                self._post_step_host(it, m, report_hook)
-                            metrics_log.flush()
-                        with span("runner.periodic"):
-                            self._periodic_actions(k)
-        finally:
-            watchdog.stop()
+    def _report(self, it: int, rows: np.ndarray, rate: str) -> Dict[str, float]:
+        """The log line of iteration it's metric row ([1, M]); returns the
+        report hook's metrics, floats."""
+        m = dict(zip(METRIC_KEYS, rows[0].tolist()))
+        log.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f var=%.5f beta=%.5f "
+                 "ws=%.3f udf_min=%.5f (%s)",
+                 it, m["loss"], m["color_total_loss"], m["gradient_error"], m["psnr"],
+                 m["variance"], m["beta"], m["weight_sum"], m["udf_min"], rate)
+        return m
 
-    def _train_window(self, k: int, window: int, img_idxs: np.ndarray) -> torch.Tensor:
-        """k iterations from iter_step on: their metric rows [k, M] on the
-        device. A full window of one body is a ``build_train_window`` call;
-        a boundary window (blending switches on within it), a shorter last
-        window, and a blending window without ``blend_scan_window`` step one
-        iteration at a time, as the JAX runner's do."""
-        with span("runner.schedules"):
-            scheds = [self._schedules_at(self.iter_step + j) for j in range(k)]
-            rows = torch.from_numpy(sched_mod.schedule_rows(scheds)).to(self.device)
-            idxs = torch.from_numpy(img_idxs).to(self.device)
-        first, last = sched_mod.is_blending(scheds[0]), sched_mod.is_blending(scheds[-1])
-        scene = self.dataset.scene
-        if first == last and k == window and (self.cfg.train.blend_scan_window or not first):
-            window_fn = self._get_window_fn(first, k)
-            mat = window_fn(self.params, self.opt_state, scene, idxs, self.generator, rows)
-            self.iter_step += k
-            return mat
-        out = []
-        for j in range(k):
-            m = self.step_body(scheds[j])(self.params, self.opt_state, scene, idxs[j], rows[j],
-                                          self.generator)
-            out.append(torch.stack([m[name] for name in METRIC_KEYS]))
-            self.iter_step += 1
-        return torch.stack(out)
+    def _crash(self, it: int, scan: int, m: Dict[str, float]):
+        """A non-finite loss at iteration it: saves the state and raises."""
+        path = self.save_checkpoint()
+        raise FloatingPointError(f"non-finite loss at iter {it}: {m}; state saved to {path}")
 
     def _periodic_actions(self, k: int):
         """The actions whose frequency has a multiple in the last window of k
@@ -380,24 +439,6 @@ class Runner:
                 self.extract_udf_mesh(world_space=True, dist_threshold_ratio=2.0)
             except Exception:  # a validation mesh must not end the training
                 log.exception("mesh extraction failed at iter %d", self.iter_step)
-
-    def _post_step_host(self, it: int, m: Dict[str, float], report_hook=None):
-        """Host-side bookkeeping of one iteration, at metric-flush time. The
-        reported rate counts the iterations since the previous report of
-        this ``train`` call over the seconds since then (``iter_rate``)."""
-        tcfg = self.cfg.train
-        if not np.isfinite(m["loss"]):
-            path = self.save_checkpoint()
-            raise FloatingPointError(f"non-finite loss at iter {it}: {m}; state saved to {path}")
-        self.update_trainability(it, m)
-        if it % tcfg.report_freq == 0:
-            ips, self._rate_mark = iter_rate(self._rate_mark, it)
-            log.info("iter %d loss=%.4f color=%.4f eik=%.4f psnr=%.2f var=%.5f beta=%.5f "
-                     "ws=%.3f udf_min=%.5f (%s)",
-                     it, m["loss"], m["color_total_loss"], m["gradient_error"], m["psnr"],
-                     m["variance"], m["beta"], m["weight_sum"], m["udf_min"], rate_text(ips))
-            if report_hook:
-                report_hook(it, m)
 
     def update_trainability(self, it: int, m: Dict[str, float]):
         """The beta/variance trainability state machine after iteration it

@@ -17,9 +17,9 @@ makes them outside the body, as the body would.
 the JAX package's ``lax.scan`` window: on a CUDA device as replays of one
 CUDA graph of ``unroll`` step bodies over static buffers, into which each
 replay's draws, views and schedule rows are copied first; on the CPU the
-same bodies run eagerly on the same buffers. ``parallel.multi_scan``
-does the same for S independent scans at once, one graph holding the step
-bodies of every scan.
+same bodies run eagerly on the same buffers. The same ``TrainWindow``
+runs S independent scans at once (``parallel.multi_scan``), one graph
+holding the step bodies of every scan.
 
 A body built with a ``RayShard`` renders only its process's slice of the
 batch and forms the loss of the whole batch (``parallel.sharding``).
@@ -27,6 +27,7 @@ batch and forms the loss of the whole batch (``parallel.sharding``).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
@@ -270,88 +271,130 @@ N_WARMUP = 2  # eager units of a window's bodies before their capture
 
 
 class TrainWindow:
-    """``window`` iterations a call over static buffers (``build_train_window``).
+    """``window`` iterations of ``n_scans`` independent scans a call over
+    static buffers (``build_train_window``; S > 1 in ``parallel.multi_scan``).
 
-    A unit is ``unroll`` consecutive step bodies. On a CUDA device the first
-    ``N_WARMUP`` units run eagerly on a side stream (real iterations of the
-    run: capture executes nothing, so none is skipped or repeated), then one
-    unit is captured into a ``torch.cuda.CUDAGraph`` and every later unit is
-    a replay of it. The graph holds the addresses of the parameters, the
-    optimizer state and the scene; when the caller hands over other tensors
-    it is dropped and captured again after a new warm-up. A capture that
-    fails raises. The kernels' launch counts, which Python advances once at
-    capture, advance by the capture's count at every replay."""
+    A unit is ``unroll`` consecutive step bodies of every scan. On a CUDA
+    device the first ``N_WARMUP`` units run eagerly on a side stream (real
+    iterations: capture executes nothing, so none is skipped or repeated),
+    then one unit is captured into a ``torch.cuda.CUDAGraph`` and every
+    later unit is a replay of it. Where S > 1 each scan's bodies run on a
+    branch stream of their own, forked from the unit's stream and joined to
+    it, so that the scans' small kernels overlap (the branches cannot share
+    memory: PERF.md §5). A scan's kernels see the same inputs in the same
+    order whatever S is, so its results are its one-scan window's, bit for
+    bit. The graph holds the addresses of the parameters, optimizer states
+    and scenes; when the caller hands over other tensors it is dropped and
+    captured again after a new warm-up. A capture that fails raises. The
+    kernels' launch counts, which Python advances once at capture, advance
+    by the capture's count at every replay."""
 
-    def __init__(self, cfg: Config, body: Callable, window: int, unroll: int):
+    def __init__(self, cfg: Config, body: Callable, window: int, unroll: int, n_scans: int = 1):
+        if unroll < 1 or window % unroll != 0:
+            raise ValueError(f"unroll {unroll} must divide window {window}")
         self.cfg, self.body, self.window, self.unroll = cfg, body, window, unroll
+        self.n_scans = n_scans
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.bound: Optional[tuple] = None
         self.warm = 0
         self.per_replay: List[tuple] = []
         self.stream = None
+        self.branches: Optional[List[torch.cuda.Stream]] = None
         self.static: Optional[Dict[str, Any]] = None
 
     def __call__(self, params: Params, opt_state: Params, scene, img_idxs: torch.Tensor,
                  generator: Optional[torch.Generator], scheds: torch.Tensor,
                  noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
-        """img_idxs [window] and scheds [window, len(SCHEDULE_KEYS)] on the
-        scene's device; ``noise`` (one dict a step) replaces the draws from
-        ``generator``. Returns the metric rows [window, len(METRIC_KEYS)] on
-        the device; params and opt_state are updated in place."""
-        k, u = self.window, self.unroll
-        if tuple(img_idxs.shape) != (k,) or tuple(scheds.shape) != (k, len(SCHEDULE_KEYS)):
-            raise ValueError(f"a window of {k} takes img_idxs [{k}] and scheds "
-                             f"[{k}, {len(SCHEDULE_KEYS)}], got {tuple(img_idxs.shape)} "
-                             f"and {tuple(scheds.shape)}")
-        if noise is not None and len(noise) != k:
-            raise ValueError(f"noise: {len(noise)} draws for a window of {k}")
+        """One scan: img_idxs [window] and scheds [window, len(SCHEDULE_KEYS)];
+        ``noise`` (one dict a step) replaces the draws from ``generator``.
+        Returns the metric rows [window, len(METRIC_KEYS)] on the device."""
+        return self.call_scans([params], [opt_state], [scene], img_idxs[:, None], [generator],
+                               scheds[:, None], noise)[:, 0]
+
+    def call_scans(self, params: Sequence[Params], opt_states: Sequence[Params],
+                   scenes: Sequence[Dict[str, torch.Tensor]], img_idxs: torch.Tensor,
+                   generators: Sequence[Optional[torch.Generator]], scheds: torch.Tensor,
+                   noise: Optional[Sequence[Sequence[Noise]]] = None) -> torch.Tensor:
+        """S scans: img_idxs [window, S] and scheds [window, S,
+        len(SCHEDULE_KEYS)] on the scenes' device; ``noise[j][i]``, scan i's
+        draws at step j (a dict for one scan), read just before step j runs,
+        replaces the draws from ``generators[i]``. Returns the metric rows
+        [window, S, len(METRIC_KEYS)] on the device; the parameters and
+        optimizer states are updated in place."""
+        k, u, S = self.window, self.unroll, self.n_scans
+        if (not len(params) == len(opt_states) == len(scenes) == len(generators) == S
+                or tuple(img_idxs.shape) != (k, S)
+                or tuple(scheds.shape) != (k, S, len(SCHEDULE_KEYS))
+                or (noise is not None and len(noise) != k)):
+            raise ValueError(f"a window of {k} steps of {S} scans takes {S} parameter sets, "
+                             f"optimizer states, scenes and generators, img_idxs [{k}, {S}], "
+                             f"scheds [{k}, {S}, {len(SCHEDULE_KEYS)}] and {k} draws; got "
+                             f"{tuple(img_idxs.shape)} and {tuple(scheds.shape)}")
         with span("window.call"):
-            dev = scene["images"].device
-            rows = torch.empty((k, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
+            dev = scenes[0]["images"].device
+            rows = torch.empty((k, S, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
+            trees = [dict(enumerate(xs)) for xs in (params, opt_states, scenes)]
             for r in range(0, k, u):
                 with span("window.draws"):
-                    draws = [noise[r + j] if noise is not None
-                             else draw_noise(self.cfg, scene, generator) for j in range(u)]
+                    # each scan consumes its own generator in its steps' order
+                    draws = [[draw_noise(self.cfg, sc, g) for sc, g in zip(scenes, generators)]
+                             if noise is None else noise[r + j] for j in range(u)]
+                    draws = [[d] if isinstance(d, Mapping) else d for d in draws]
                     st = self._buffers(draws, dev)
-                    for j, d in enumerate(draws):
-                        if d.keys() != st["noise"][j].keys():
-                            raise ValueError(f"draws {sorted(d)} differ from the window's "
-                                             f"{sorted(st['noise'][j])}")
-                        for key, t in d.items():
-                            st["noise"][j][key].copy_(t)
+                    for step, bufs in zip(draws, st["noise"]):
+                        for d, buf in zip(step, bufs, strict=True):
+                            if d.keys() != buf.keys():
+                                raise ValueError(f"draws {sorted(d)} differ from the window's "
+                                                 f"{sorted(buf)}")
+                            for key, t in d.items():
+                                buf[key].copy_(t)
                     st["idx"].copy_(img_idxs[r:r + u])
                     st["sched"].copy_(scheds[r:r + u])
-                self._run(params, opt_state, scene, dev)
+                self._run(*trees, dev)
                 rows[r:r + u].copy_(st["rows"])
             return rows
 
-    def _buffers(self, draws: Sequence[Noise], dev) -> Dict[str, Any]:
+    def _buffers(self, draws: Sequence[Sequence[Noise]], dev) -> Dict[str, Any]:
         if self.static is None:
+            u, S = self.unroll, self.n_scans
             self.static = {
-                "noise": [{key: torch.empty_like(t, device=dev) for key, t in d.items()}
-                          for d in draws],
-                "idx": torch.zeros((self.unroll,), dtype=torch.long, device=dev),
-                "sched": torch.zeros((self.unroll, len(SCHEDULE_KEYS)), dtype=torch.float32,
-                                     device=dev),
-                "rows": torch.zeros((self.unroll, len(METRIC_KEYS)), dtype=torch.float32,
-                                    device=dev),
+                "noise": [[{key: torch.empty_like(t, device=dev) for key, t in d.items()}
+                           for d in step] for step in draws],
+                "idx": torch.zeros((u, S), dtype=torch.long, device=dev),
+                "sched": torch.zeros((u, S, len(SCHEDULE_KEYS)), dtype=torch.float32, device=dev),
+                "rows": torch.zeros((u, S, len(METRIC_KEYS)), dtype=torch.float32, device=dev),
             }
         return self.static
 
     def _unit(self, params, opt_state, scene) -> None:
+        """params, opt_state, scene: scan -> that scan's tree."""
         st = self.static
-        rows = [self.body(params, opt_state, scene, st["idx"][j], st["sched"][j],
-                          noise=st["noise"][j]) for j in range(self.unroll)]
-        st["rows"].copy_(torch.stack([torch.stack([m[name] for name in METRIC_KEYS])
-                                      for m in rows]))
+        dev = st["idx"].device
+        fork = dev.type == "cuda" and self.n_scans > 1
+        if fork:
+            main = torch.cuda.current_stream(dev)
+            if self.branches is None:
+                self.branches = [torch.cuda.Stream(dev) for _ in range(self.n_scans)]
+        for i in range(self.n_scans):
+            if fork:
+                self.branches[i].wait_stream(main)
+            with torch.cuda.stream(self.branches[i]) if fork else contextlib.nullcontext():
+                rows = [self.body(params[i], opt_state[i], scene[i], st["idx"][j, i],
+                                  st["sched"][j, i], noise=st["noise"][j][i])
+                        for j in range(self.unroll)]
+                st["rows"][:, i].copy_(torch.stack(
+                    [torch.stack([m[name] for name in METRIC_KEYS]) for m in rows]))
+        if fork:
+            for side in self.branches:
+                main.wait_stream(side)
 
     def _run(self, params, opt_state, scene, dev) -> None:
         if dev.type != "cuda":
             count("window.eager_units")
             self._unit(params, opt_state, scene)
             return
-        bound = tuple(t.data_ptr() for tree in (params, opt_state, scene)
-                      for _, t in leaves(tree))
+        bound = tuple(t.data_ptr() for trees in (params, opt_state, scene)
+                      for tree in trees.values() for _, t in leaves(tree))
         if self.graph is not None and bound != self.bound:
             self.graph, self.warm = None, 0  # captured over tensors that were replaced
         if self.stream is None:
@@ -390,8 +433,6 @@ def build_train_window(cfg: Config, renderer: UDFRenderer, *, blending: bool, wi
                        unroll: int = 1) -> TrainWindow:
     """window_fn(params, opt_state, scene, img_idxs, generator, scheds,
     noise=None) -> metric rows [window, len(METRIC_KEYS)]: ``window``
-    iterations, ``unroll`` step bodies a graph (see ``TrainWindow``).
-    ``unroll`` must divide ``window``."""
-    if unroll < 1 or window % unroll != 0:
-        raise ValueError(f"unroll {unroll} must divide window {window}")
+    iterations of one scan, ``unroll`` step bodies a graph (see
+    ``TrainWindow``). ``unroll`` must divide ``window``."""
     return TrainWindow(cfg, build_step_body(cfg, renderer, blending=blending), window, unroll)

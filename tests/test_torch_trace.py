@@ -4,7 +4,8 @@ one shared no-op and nothing is recorded; on, spans nest, their self time
 leaves out their children, counters add up; a ``Runner.train`` records the
 runner's, the window's and the step's spans with the counts a window asks
 for, and under ``torch.profiler`` they are nested ``record_function``
-events. Also the reported rate of ``Runner.train`` and of the multi-scan
+events; the multi-scan runner's ``train``, the same loop, records the
+same. Also the reported rate of ``Runner.train`` and of the multi-scan
 runner, which counts from the previous report only."""
 
 import logging
@@ -146,6 +147,29 @@ def test_runner_train_records_each_layer_a_window(scene_dir, tmp_path, windows):
     children = sum(spans[k]["total_ns"] for k in (
         "runner.schedules", "runner.fetch", "runner.log", "runner.periodic", "window.call"))
     # both schedule spans (the views, and in _train_window the rest) are the window's children
+    assert spans["runner.window"]["total_ns"] - spans["runner.window"]["self_ns"] == children
+
+
+@pytest.mark.parametrize("windows", [1, 2])
+def test_multi_scan_train_records_the_runner_spans_a_window(scene_dir, tmp_path, windows):
+    """MultiScanRunner.train runs Runner.train's loop and window: the same
+    runner and window spans a window, every scan's step spans an iteration,
+    one eager unit an iteration of both scans."""
+    cfg = tiny_cfg(scene_dir, str(tmp_path / "single"), end_iter=windows * W)
+    ms = MultiScanRunner(cfg, [scene_dir, scene_dir], case_names=["a", "b"],
+                         out_dir=str(tmp_path / "ms"), device="cpu")
+    trace.enable()
+    ms.train()
+    trace.disable()
+    snap = trace.snapshot()
+    calls = {k: v["calls"] for k, v in snap["spans"].items()}
+    want = {k: n * windows for k, n in RUNNER_SPANS.items()}
+    want.update({k: 2 * W * windows for k in STEP_SPANS})
+    assert calls == want
+    assert snap["counts"] == {"window.eager_units": W * windows}
+    spans = snap["spans"]
+    children = sum(spans[k]["total_ns"] for k in (
+        "runner.schedules", "runner.fetch", "runner.log", "runner.periodic", "window.call"))
     assert spans["runner.window"]["total_ns"] - spans["runner.window"]["self_ns"] == children
 
 

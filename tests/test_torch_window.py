@@ -156,8 +156,8 @@ def test_window_body_makes_no_host_tensor_or_read(scene_dir, tmp_path, blending)
     _, rows, idxs = window_inputs(runner, 2)
     window_fn = runner._get_window_fn(blending, 2)
     window_fn(runner.params, runner.opt_state, runner.dataset.scene, idxs, runner.generator, rows)
-    assert host_traffic(lambda: window_fn._unit(runner.params, runner.opt_state,
-                                                runner.dataset.scene)) == []
+    assert host_traffic(lambda: window_fn._unit({0: runner.params}, {0: runner.opt_state},
+                                                {0: runner.dataset.scene})) == []
     # what it must see: a host tensor, a host read, torch.cumprod's backward
     x = torch.rand(2, 3, requires_grad=True)
     seen = host_traffic(lambda: (torch.as_tensor(0.5) + float(torch.ones(())),
