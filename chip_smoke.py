@@ -37,6 +37,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``TOL_NERF``; the training phases below check that it runs once a step
    on the DTU-width paths (forward once a chunk in the validation renders)
    and never on the garment recipe's;
+3c. ``[value]``: K5, the up-sampling's value-only distance pass
+   (``ops/fused_distance.py`` ``sampling_distance_fn``), at a DTU step's
+   and a garment step's pass rows, a validation chunk's and two counts that
+   end in a partly empty tile: one render's pack and pass captured in a
+   CUDA graph, two replays bit-equal, against its explicit version, the
+   plain bf16 chain and the f32 chain (``TOL_VALUE``), no further from the
+   f32 chain than the bf16 chain by RMS; its tiles of 128 and 64 rows (at
+   32,768 and 5,120 rows, by the row-count rule) bit-equal on shared rows;
+   the training phases ``[window]``
+   and ``[garment]`` check that it runs once a pass of the up-sampling (5 a
+   DTU step, 6 a garment step) and its pack once a step;
 4. the synthetic sphere scene (16 views, 600x800) with the port's generator;
 5. one training loss and its gradients on a small batch through the kernels
    (tiers "highest" and "high") against the plain autograd path;
@@ -132,8 +143,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
     of the Adam kernel and the plain ``adam_step`` and ``flat_adam_step`` on
     the DTU tree, each a graph of 10 updates; of K4 at a step's rows (its
     forward with and without what the backward reads, its backward, both
-    under autograd) and of the plain chain; the profile
-    of one validation chunk.
+    under autograd) and of the plain chain; of K5 at a DTU step's and a
+    garment step's pass rows (the tile their count gives), of its pack and of the plain
+    chain's pass, each a graph of 10 calls; the profile of one validation
+    chunk.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -143,6 +156,7 @@ marching-cubes engine), the scene and the meshes go under ``build/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -291,7 +305,7 @@ K3_VAL_SHAPE = (8, 4096 * 4, 8)
 VAL_IDX = 5  # the view of the chunk checks and of Runner.validate
 VAL_FREQ = 50  # the short training run that crosses val_freq
 # A 4,096-ray chunk through the kernels against the plain path (fused_core
-# off, strip_sample_plain), same parameters and draws: (max, mean) of
+# off, strip_sample_plain), same parameters, draws and up-sampling: (max, mean) of
 # |kernel - plain| per output. Tier "highest": K1 is the plain version's f32
 # arithmetic summed in another order (~2e-6 relative, PERF.md §6), and the
 # render downstream is the same code; only the pixel colour may differ more,
@@ -375,6 +389,28 @@ NERF_SEED = 5
 # chain: it also rounds each product's output and its weight cotangents to
 # bf16 (measured 4.8e-3 and 5.4e-3).
 TOL_NERF = {"explicit": 1e-2, "autograd": 3e-2}
+# [value]: K5, the up-sampling's value-only pass (ops/fused_distance.py
+# sampling_distance_fn), at the rows of a DTU step's passes (512 rays x 64
+# samples, then x 10 new ones a round), of a garment step's later passes (x
+# 13) and of a validation chunk's (4,096 rays x 64 and x 10), and at two
+# counts that end in a partly empty tile; pack and pass captured in a CUDA
+# graph, against K5's explicit version, the plain bf16 chain the card ran
+# before it and the f32 chain, on the DTU-width net's seeded init with
+# every weight moved by VALUE_NOISE of its leaf's RMS (the init's field is a
+# smooth sphere), at points uniform in [-1.2, 1.2]^3.
+VALUE_ROWS = (512 * 64, 512 * 10, 512 * 13, 4096 * 64, 4096 * 10, 5000, 300)
+VALUE_SEED, VALUE_NOISE = 7, 0.05
+# max |K5 - reference| / max |reference|. Against the explicit version: the
+# same bf16 operands, f32 sums in another order and the polynomial
+# softplus, so a pre-activation an ulp apart may round to the neighbouring
+# bf16 operand (measured on the H100: 1.2e-3 to 3.9e-3 over VALUE_ROWS).
+# Against the plain bf16 chain, which also rounds every product's output to
+# bf16, and against the f32 chain: bf16's own error (measured 6.0e-3 to
+# 7.4e-3 and 4.5e-3 to 5.8e-3). The tiles of 64 and 128 rows must agree
+# bit for bit. And K5 is no less
+# precise than the chain: its RMS difference from the f32 chain is at most
+# the chain's (measured 0.71 to 0.74 of it).
+TOL_VALUE = {"explicit": 1e-2, "chain": 2e-2, "f32": 2e-2}
 
 
 def log(msg: str) -> None:
@@ -601,10 +637,26 @@ def check_refused_net(ucfg, dev, n_points: int = N_POINTS) -> dict:
     return errors
 
 
+@contextlib.contextmanager
+def same_up_sampling():
+    """The "sampling" policy at "highest" while a comparison of K1, K2 or K3
+    with the plain path (``fused_core = "off"``) runs: K5 takes the
+    up-sampling's passes at "bf16" alone, so both sides then take the same
+    f32 chain there and place the same samples."""
+    from neuraludf_tpu_torch.nets import mlp
+
+    policy = mlp.PRECISION_POLICY["sampling"]
+    mlp.PRECISION_POLICY["sampling"] = "highest"
+    try:
+        yield
+    finally:
+        mlp.PRECISION_POLICY["sampling"] = policy
+
+
 def check_small_step(cfg, dataset, dev):
     """One loss and its gradients on a 64-ray batch: the kernels (tiers
-    'highest' and 'high') against the plain autograd path, same params and
-    draws."""
+    'highest' and 'high') against the plain autograd path, same params,
+    draws and up-sampling (``same_up_sampling``)."""
     from neuraludf_tpu_torch.ops import fused_distance as fd
     from neuraludf_tpu_torch.render.renderer import UDFRenderer
     from neuraludf_tpu_torch.train import step as tstep
@@ -622,7 +674,8 @@ def check_small_step(cfg, dataset, dev):
         loss_fn = tstep.build_loss_fn(c, UDFRenderer(c.model))
         gen = torch.Generator(device=dev).manual_seed(2)
         launched = (fd.fused_forward.launches, fd.fused_backward.launches)
-        total, _ = loss_fn(params, dataset.scene, 3, sched, gen)
+        with same_up_sampling():
+            total, _ = loss_fn(params, dataset.scene, 3, sched, gen)
         grads = tstep.param_grads(total, params)
         results[(core, prec)] = (total.detach(), grads)
         ran = (fd.fused_forward.launches - launched[0], fd.fused_backward.launches - launched[1])
@@ -854,11 +907,7 @@ def time_adam(dev, card) -> dict:
     times = {}
     for name, fn in (("kernel", optim.adam_step), ("plain", optim.adam_step_plain),
                      ("flat_plain", optim.flat_adam_step_plain)):
-        fn(params, grads, state, lr_fn, tr_fn)  # warm-up
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(ADAM_TIMED):
-                fn(params, grads, state, lr_fn, tr_fn)
+        graph = graphed(lambda: fn(params, grads, state, lr_fn, tr_fn), ADAM_TIMED)
         times[name] = cuda_ms(graph.replay, 5) / ADAM_TIMED
         del graph
     times["kernel_eager"] = cuda_ms(lambda: optim.adam_step(params, grads, state, lr_fn, tr_fn),
@@ -1049,6 +1098,202 @@ def plain_nerf_forward(ws, bs, pts, views):
             "feature": {"w": ws[8], "b": bs[8]}, "views": {"lin0": {"w": ws[9], "b": bs[9]}},
             "alpha": {"w": ws[10], "b": bs[10]}, "rgb": {"w": ws[11], "b": bs[11]}}
     return fields.background_nerf_apply_plain(tree, pts, views, NeRFConfig())
+
+
+def value_setup(dev):
+    """The DTU-width distance net (``CONF``'s, seeded geometric init) with
+    every leaf moved by VALUE_NOISE of its RMS, on dev: (params, cfg)."""
+    from neuraludf_tpu_torch import config as config_mod
+    from neuraludf_tpu_torch.nets import fields
+
+    ucfg = config_mod.load(str(CONF)).model.udf_network
+    gen = torch.Generator().manual_seed(VALUE_SEED)
+    params = fields.init_distance_field(gen, ucfg)
+    for p in params.values():
+        for k, t in p.items():
+            rms = float(t.pow(2).mean().sqrt())
+            p[k] = (t + VALUE_NOISE * rms * torch.randn(t.shape, generator=gen)).to(dev)
+    return params, ucfg
+
+
+def value_passes(cfg) -> int:
+    """K5 launches a render of cfg's renderer: the first samples' pass and
+    one a round that adds samples (classical: every round but the last;
+    mix: the no-occlusion rounds)."""
+    r = cfg.model.udf_renderer
+    if r.n_importance <= 0:
+        return 0
+    return r.up_sample_steps + (r.upsampling_type == "mix")
+
+
+def value_launches() -> dict:
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    return {"K5": fd.fused_value, "K5p": fd.value_pack}
+
+
+def check_value_launched(value: dict, n_steps: int, cfg, where: str) -> None:
+    """K5 launched value_passes(cfg) times a step, its pack once."""
+    got = {name: k.launches for name, k in value.items()}
+    want = {"K5": n_steps * value_passes(cfg), "K5p": n_steps}
+    log(f"{where} K5 launches {got} over {n_steps} steps ({value_passes(cfg)} passes a step)")
+    if got != want:
+        raise AssertionError(f"{where} K5 launches {got}, expected {want}")
+
+
+def check_value_at(dev, params, ucfg, n: int) -> dict:
+    """K5 at n rows: one render's pack and pass (``sampling_distance_fn``)
+    captured in a CUDA graph (two eager warm-ups on a side stream),
+    replayed twice (bit-equal), the eager call bit-equal to the graph's;
+    against the explicit version, the plain bf16 chain and the f32 chain."""
+    from neuraludf_tpu_torch.nets import fields
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    gen = torch.Generator().manual_seed(VALUE_SEED + n)
+    x = (torch.rand(n, 3, generator=gen) * 2.4 - 1.2).to(dev)
+    call = lambda: fd.sampling_distance_fn(params, ucfg)(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    counters = value_launches()
+    before = {k: c.launches for k, c in counters.items()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    out = {"rows": n, "capture_launches": {k: c.launches - before[k]
+                                           for k, c in counters.items()}}
+    graph.replay()
+    first = static.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    out["replays_equal"] = torch.equal(first, static)
+    out["eager_equal"] = torch.equal(call(), static)
+    f32 = fields.distance_value(params, x, ucfg)[:, 0]
+    chain = fields.distance_value(params, x, ucfg, role="sampling")[:, 0]
+    refs = {"explicit": fd.explicit_value(x, params, ucfg), "chain": chain, "f32": f32}
+    out["max_rel_err"] = {k: rel_err(static, r)[1] for k, r in refs.items()}
+    out["rms_rel_err_f32"] = {"K5": rms_rel(static, f32), "chain": rms_rel(chain, f32)}
+    del graph
+    log(f"[value] K5 at {n} rows in a CUDA graph: capture launches {out['capture_launches']}, "
+        f"replays bit-equal {out['replays_equal']}, eager bit-equal {out['eager_equal']}; max "
+        f"relative error against the explicit version {out['max_rel_err']['explicit']:.2e}, the "
+        f"bf16 chain {out['max_rel_err']['chain']:.2e}, the f32 chain "
+        f"{out['max_rel_err']['f32']:.2e}; RMS from the f32 chain K5 "
+        f"{out['rms_rel_err_f32']['K5']:.2e}, bf16 chain {out['rms_rel_err_f32']['chain']:.2e}")
+    if (out["capture_launches"] != {"K5": 1, "K5p": 1} or not out["replays_equal"]
+            or not out["eager_equal"]
+            or any(out["max_rel_err"][k] > TOL_VALUE[k] for k in TOL_VALUE)
+            or out["rms_rel_err_f32"]["K5"] > out["rms_rel_err_f32"]["chain"]):
+        raise AssertionError(f"[value] K5 at {n} rows: {out}")
+    return out
+
+
+def check_value(dev) -> dict:
+    """[value]: K5 at each of VALUE_ROWS (``check_value_at``)."""
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    t0 = time.time()
+    fd.library()
+    out = {"build_s": time.time() - t0}
+    params, ucfg = value_setup(dev)
+    if not fd.value_kernel_takes(ucfg, dev):
+        raise AssertionError("[value] K5 does not take the DTU-width net")
+    for n in VALUE_ROWS:
+        out[n] = check_value_at(dev, params, ucfg, n)
+    out["tiles_equal"] = check_value_tiles(dev, params, ucfg)
+    log(f"[value] ok in {time.time() - t0:.1f} s")
+    return out
+
+
+def value_tile(n: int, dev) -> int:
+    """The rows of K5's tile at n rows: 128 where n's 128-row tiles fill
+    the SMs, else 64 (``fd_value``)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 128 if (n + 127) // 128 >= sms else 64
+
+
+def check_value_tiles(dev, params, ucfg) -> bool:
+    """The two tiles agree bit for bit: K5 over 32,768 points (a DTU step's
+    first pass) against K5 over its first 5,120 (a later pass), which the
+    row-count rule gives the other tile; a row's udf does not depend on the
+    row count."""
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    gen = torch.Generator().manual_seed(VALUE_SEED)
+    x = (torch.rand(512 * 64, 3, generator=gen) * 2.4 - 1.2).to(dev)
+    small = 512 * 10
+    tiles = value_tile(x.shape[0], dev), value_tile(small, dev)
+    if tiles != (128, 64):
+        raise AssertionError(f"[value] tiles {tiles} at {x.shape[0]} and {small} rows, "
+                             f"expected (128, 64)")
+    fn = fd.sampling_distance_fn(params, ucfg)
+    equal = torch.equal(fn(x)[:small], fn(x[:small].contiguous()))
+    log(f"[value] tiles of {tiles[0]} rows (at {x.shape[0]}) and of {tiles[1]} (at {small}): "
+        f"bit-equal on the shared rows {equal}")
+    if not equal:
+        raise AssertionError("[value] K5's tiles of 128 and 64 rows differ")
+    return equal
+
+
+def graphed(fn, reps: int) -> "torch.cuda.CUDAGraph":
+    """A CUDA graph of reps calls of fn, captured after one eager call; its
+    replay timed with ``cuda_ms`` is the device's time of the calls, as a
+    training window runs them, not the host's launches."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return graph
+
+
+def value_flops(lay, n: int) -> float:
+    """Operations of one K5 pass over n rows: 2 a multiply-add of the
+    hidden layers at their true widths and of the head's column 0."""
+    hidden = sum((lay.h_true[l] + (lay.d0 if l == 0 or lay.skip[l] else 0)) * lay.n_true[l]
+                 for l in range(lay.n_layers - 1))
+    return 2.0 * n * (hidden + lay.h_true[-1])
+
+
+def time_value(dev, card) -> dict:
+    """Device ms of K5 at a DTU step's and a garment step's pass rows and a
+    validation chunk's first (the tile its row count gives), of its pack,
+    and of the plain bf16 chain's pass (``fields.distance_value`` at the
+    "sampling" role, its weight norm included), each a CUDA graph of REPS
+    calls (``graphed``); the bounds at the bf16 peak; the passes and pack
+    of a DTU step (32,768 rows, then 4 x 5,120) and of a garment step
+    (32,768, then 5 x 6,656)."""
+    from neuraludf_tpu_torch.nets import fields
+    from neuraludf_tpu_torch.ops import fused_distance as fd
+
+    params, ucfg = value_setup(dev)
+    lay = fd.layout_for(ucfg)
+    layers = fd.value_layers(params, ucfg, dev)
+    packed = fd.value_pack(layers, lay)
+    gen = torch.Generator().manual_seed(VALUE_SEED)
+    ms = lambda fn: cuda_ms(graphed(fn, REPS).replay, 5) / REPS
+    out = {"pack_ms": ms(lambda: fd.value_pack(layers, lay)), "rows": {}}
+    for n in (512 * 64, 512 * 10, 512 * 13, 4096 * 64):
+        x = (torch.rand(n, 3, generator=gen) * 2.4 - 1.2).to(dev)
+        row = {"K5": ms(lambda: fd.fused_value(x, packed, lay)), "tile": value_tile(n, dev),
+               "chain": ms(lambda: fields.distance_value(params, x, ucfg, role="sampling")),
+               "bound": value_flops(lay, n) / PEAK_FLOPS["default"] * 1e3}
+        out["rows"][n] = row
+        log(f"[time] K5 at {n} rows: {row['K5']:.4f} ms (tiles of {row['tile']} rows), bound "
+            f"{row['bound']:.4f} ms ({100 * row['bound'] / row['K5']:.1f}% of it); the plain "
+            f"bf16 chain's pass {row['chain']:.4f} ms  [{card}]")
+    r = out["rows"]
+    for name, small, k in (("dtu", 512 * 10, 4), ("garment", 512 * 13, 5)):
+        out[name] = {"K5": out["pack_ms"] + r[512 * 64]["K5"] + k * r[small]["K5"],
+                     "chain": r[512 * 64]["chain"] + k * r[small]["chain"],
+                     "bound": r[512 * 64]["bound"] + k * r[small]["bound"]}
+        log(f"[time] a {name} step's up-sampling passes: K5 {out[name]['K5']:.4f} ms with its "
+            f"pack ({out['pack_ms']:.4f}), the plain chain {out[name]['chain']:.4f} ms, bound "
+            f"{out[name]['bound']:.4f} ms  [{card}]")
+    return out
 
 
 def check_strip_sample(scene, dev):
@@ -1357,8 +1602,9 @@ def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finet
     """[window]: WINDOW_STEPS iterations from ``ckpt`` through the graphed
     window (its warm-up and capture included) and through the eager loop,
     two runners on one start state and generator state; launch counts of the
-    graphed run (once a step for each kernel of ``on_path``), the graph
-    pool's memory; the compare."""
+    graphed run (once a step for each kernel of ``on_path``; K5 once a pass
+    of the up-sampling, its pack once a step), the graph pool's memory; the
+    compare."""
     from neuraludf_tpu_torch.train.runner import Runner
 
     g_runner, e_runner, e2_runner = (Runner(cfg, device=dev, seed=seed, is_finetune=is_finetune)
@@ -1366,7 +1612,8 @@ def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finet
     for r in (g_runner, e_runner, e2_runner):
         r.load_checkpoint(ckpt)
     scheds, rows, idxs = window_inputs(g_runner, WINDOW_STEPS)
-    for k in counters.values():
+    value = value_launches()
+    for k in (*counters.values(), *value.values()):
         k.launches = 0
     adam_before = adam_launches()
     torch.cuda.synchronize()
@@ -1388,6 +1635,8 @@ def check_window(cfg, ckpt, dev, counters, on_path, card, *, seed: int, is_finet
     if any(n != (WINDOW_STEPS if name in on_path else 0) for name, n in launches.items()):
         raise AssertionError(f"[window] kernels {on_path} did not run once a graphed step: "
                              f"{launches}")
+    check_value_launched(value, WINDOW_STEPS, cfg, "[window]")
+    launches.update({name: k.launches for name, k in value.items()})
     launches["Adam"] = check_adam_launched(adam_before, WINDOW_STEPS, "window")
     eager = eager_steps(e_runner, scheds, rows, idxs)
     eager2 = eager_steps(e2_runner, scheds, rows, idxs)
@@ -1583,16 +1832,17 @@ def render_chunk_with(runner, model_cfg, sampler, rays):
 
 def check_validation_chunk(runner):
     """One 4,096-ray validation chunk through the kernels (each tier of K1,
-    K3) against the plain path; K3 alone at the chunk's own positions
-    against its plain version and F.grid_sample. Returns K3's errors and
-    inputs."""
+    K3) against the plain path, both on the same up-sampling
+    (``same_up_sampling``); K3 alone at the chunk's own positions against
+    its plain version and F.grid_sample. Returns K3's errors and inputs."""
     from neuraludf_tpu_torch.ops import strip_sample as ss
 
     mcfg = runner.cfg.model
     rays = validation_chunk(runner)
     variant = lambda **kw: dataclasses.replace(
         mcfg, udf_network=dataclasses.replace(mcfg.udf_network, **kw))
-    plain = render_chunk_with(runner, variant(fused_core="off"), ss.strip_sample_plain, rays)
+    with same_up_sampling():
+        plain = render_chunk_with(runner, variant(fused_core="off"), ss.strip_sample_plain, rays)
     recorded = []
 
     def recording(images, gx, gy):
@@ -1603,8 +1853,9 @@ def check_validation_chunk(runner):
              "depth": slice(9, 10)}
     for tier in ("highest", "default"):
         before = ss.strip_sample.launches
-        out = render_chunk_with(runner, variant(fused_core="on", fused_precision=tier),
-                                recording, rays)
+        with same_up_sampling():
+            out = render_chunk_with(runner, variant(fused_core="on", fused_precision=tier),
+                                    recording, rays)
         if ss.strip_sample.launches - before != 1:
             raise AssertionError("the validation chunk did not launch K3 once")
         if not bool(torch.isfinite(out).all()):
@@ -2324,9 +2575,11 @@ def check_garment(dev, counters) -> dict:
     g_runner = Runner(replay_cfg, seed=0, reg_weights_schedule=True, device=dev)
     g_runner.load_checkpoint(stage1_ckpt)
     graphed_steps(g_runner, *window_inputs(g_runner, TIMED_STEPS))  # warm-up and capture
-    for k in counters.values():
+    value = value_launches()
+    for k in (*counters.values(), *value.values()):
         k.launches = 0
     graphed_steps(g_runner, *window_inputs(g_runner, TIMED_STEPS))
+    check_value_launched(value, TIMED_STEPS, cfg, "[garment]")
     out["launches_per_replay"] = {n: k.launches / TIMED_STEPS for n, k in counters.items()}
     log(f"[garment] launches a replayed step: {out['launches_per_replay']}")
     if out["launches_per_replay"] != {"K1": 1.0, "K2": 1.0, "K3": 0.0, "K4f": 0.0, "K4b": 0.0}:
@@ -2500,6 +2753,8 @@ def main() -> int:
     launches_a_call = call_launches(kin)
     log(f"[nerf] K4 at {N_NERF_ROWS} and {N_NERF_VAL_ROWS} rows against its plain versions")
     nerf = check_nerf(dev)
+    log(f"[value] K5 at {VALUE_ROWS} rows against its plain versions")
+    value = check_value(dev)
     for head in sorted(set(fd.HEADS) - {ucfg.udf_type}):  # the heads the main path does not run
         log(f"[kernels] K1/K2 with the '{head}' head at N={N_OTHER_HEADS}")
         check_kernels(dataclasses.replace(ucfg, udf_type=head), dev, N_OTHER_HEADS)
@@ -2614,6 +2869,7 @@ def main() -> int:
     k3_val_times, k3_val_bytes, k3_val_flops = time_strip_sample(val["k3_inputs"], card)
     adam_times = time_adam(dev, card)
     nerf_times = time_nerf(dev, card)
+    value_times = time_value(dev, card)
     # after cuda_launches: a profile taken before it cost that count its launches
     profile_chunk(runner)
 
@@ -2755,6 +3011,20 @@ def main() -> int:
         "max_rel_err": {str(n): nerf[n]["max_rel_err"] for n in (N_NERF_ROWS, N_NERF_VAL_ROWS)},
         "ms": nerf_times["ms"], "bound_ms": nerf_times["bound_ms"], "bound_by": "operations",
         "share_of_bound": nerf_times["share_of_bound"], "library_ms": None,
+    })
+    kernels.append({
+        "name": "fused_value", "route": "cuda",
+        "source": "neuraludf_tpu_torch/csrc/fused_distance.cu",
+        "replaces": None,  # the JAX package leaves the up-sampling's passes to XLA
+        "window_launches": {p: {k: window[p]["launches"][k] for k in ("K5", "K5p")}
+                            for p in window},
+        "cuda_launches_per_call": {"K5": 1, "K5p": 1},
+        "checked_at": [f"{n} rows, pack and pass in a CUDA graph" for n in VALUE_ROWS],
+        "max_rel_err": {str(n): value[n]["max_rel_err"] for n in VALUE_ROWS},
+        "ms": {str(n): row for n, row in value_times["rows"].items()},
+        "pack_ms": value_times["pack_ms"],
+        "step_ms": {k: value_times[k] for k in ("dtu", "garment")}, "bound_by": "operations",
+        "library_ms": None,
     })
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "neuraludf_tpu"))
     if jax_modules:

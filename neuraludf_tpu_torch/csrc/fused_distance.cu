@@ -1,5 +1,6 @@
 // Fused distance-field kernels for Hopper (sm_90a): K1 (forward) and K2
-// (its second-order backward).
+// (its second-order backward), and K5 (the value-only pass of the
+// up-sampling, which the JAX package leaves to XLA; see its section below).
 //
 // Replaces the two Pallas TPU kernels of neuraludf_tpu/ops/fused_distance.py:
 //   K1  _build -> call_fwd (body _fwd_body): the UDF MLP forward (PE, 8x256
@@ -918,6 +919,230 @@ __global__ void __launch_bounds__(FT, 1) wgrad_kernel(const __grid_constant__ Wg
           make_float2(I.alpha * acc[4 * i4 + 2], I.alpha * acc[4 * i4 + 3]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K5: the value-only pass of the up-sampling (bf16 operands, f32 sums)
+// ---------------------------------------------------------------------------
+//
+// udf(x) alone, no gradient, nothing kept: K1's forward sweep over the
+// hidden layers, whose last epilogue also takes the head's column 0 as a dot
+// product of its activations (rounded to bf16, the operand K1's head GEMM
+// reads) with the head's first weight column. The other head columns are
+// the feature, which no caller of the pass reads. A tile is 128 rows (each
+// warpgroup 64 rows by 256 columns) where the row count fills the SMs, else
+// 64 rows (both warpgroups read the same 64 rows, each computes 128 of the
+// 256 columns), so that a pass of a few thousand rows runs on twice as many
+// SMs. Both tiles sum the head's column in one order (each half of the 256
+// columns, then the halves), so a row's udf does not depend on the row
+// count. Rows past the count compute on x = 0 and are not written.
+// value_pack_kernel resolves the weight norm from (v, g, b) and writes the
+// bf16 W^T slices of the hidden layers, the head's column and the f32
+// biases, once a render, for all of its passes.
+
+#define V_MAX_K 320  // widest padded input of a hidden layer: 256 + 64
+#define VALUE_SMEM (1024 + N_PANELS * PANEL + N_STAGES * STAGE + sizeof(Slice) * MAX_SLICES + 4 * 128)
+
+struct VPackArgs {
+  const float* v[F_MAX_LAYERS];  // W (v of a weight-normed layer), [d_in x d_out] at the true widths
+  const float* g[F_MAX_LAYERS];  // null: no weight norm
+  const float* b[F_MAX_LAYERS];
+  int kp[F_MAX_LAYERS], n_true[F_MAX_LAYERS], skip[F_MAX_LAYERS];
+  long t_off[F_MAX_LAYERS];  // W_l^T [WIDTH x kp] in w16; the head's column at t_off[n_layers - 1]
+  int n_layers, d0;
+  __nv_bfloat16* w16;
+  float* bias;  // [(n_layers - 1) x WIDTH], then the head's b[0]
+};
+
+struct VLayer {
+  int skip;
+  float alpha;
+};
+
+struct ValueArgs {
+  const float* x;
+  const __nv_bfloat16 *w16, *wh;  // the hidden layers' W^T slices; the head's column 0
+  const float* bias;
+  float* out;
+  int n, n_tiles, n_layers, multires, head, n_slices;
+  float scale;
+  VLayer l[F_MAX_LAYERS];
+  Slice s[MAX_SLICES];
+};
+
+// Block 8 l + c (c < 8): columns 32 c .. 32 c + 31 of hidden layer l; the
+// last block: the head's column 0. W = v (g / ||v||) per output column (the
+// norm over the true input rows), as nets/mlp.py's weight().
+__global__ void __launch_bounds__(256) value_pack_kernel(const __grid_constant__ VPackArgs P) {
+  __shared__ float tile[V_MAX_K][33];
+  __shared__ float part[8][32];
+  __shared__ float scl[32];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const bool head = blockIdx.x == (unsigned)(P.n_layers - 1) * 8;
+  const int l = head ? P.n_layers - 1 : blockIdx.x / 8, n0 = head ? 0 : (blockIdx.x % 8) * 32;
+  const int nt = P.n_true[l], h_true = l == 0 ? 0 : P.n_true[l - 1];
+  const int kh = l == 0 ? 0 : WIDTH;
+  const int d_in = h_true + (l == 0 || P.skip[l] ? P.d0 : 0);
+  const int n = n0 + lane;
+  const bool live = n < nt && (!head || lane == 0);
+  float s = 0.f;
+  for (int k = w; k < d_in; k += 8) {
+    const float v = live ? P.v[l][(long)k * nt + n] : 0.f;
+    tile[k][lane] = v;
+    s = fmaf(v, v, s);
+  }
+  part[w][lane] = s;
+  __syncthreads();
+  if (w == 0) {
+    float t = 0.f;
+    for (int i = 0; i < 8; ++i) t += part[i][lane];
+    scl[lane] = !live ? 0.f : (P.g[l] ? P.g[l][n] / sqrtf(t) : 1.f);
+  }
+  __syncthreads();
+  // the true input row of padded row kpad: the h-part, then the embedding's
+  auto row_of = [&](int kpad) {
+    if (kpad < kh) return kpad < h_true ? kpad : -1;
+    const int j = kpad - kh;
+    return j < P.d0 ? h_true + j : -1;
+  };
+  if (head) {
+    for (int kpad = tid; kpad < WIDTH; kpad += 256) {
+      const int k = row_of(kpad);
+      P.w16[P.t_off[l] + kpad] = __float2bfloat16(k >= 0 ? tile[k][0] * scl[0] : 0.f);
+    }
+    if (tid == 0) P.bias[l * WIDTH] = P.b[l][0];
+    return;
+  }
+  const int kp = P.kp[l];
+  for (int r = w; r < 32; r += 8) {
+    __nv_bfloat16* dst = P.w16 + P.t_off[l] + (long)(n0 + r) * kp;
+    for (int kpad = lane; kpad < kp; kpad += 32) {
+      const int k = row_of(kpad);
+      dst[kpad] = __float2bfloat16(k >= 0 ? tile[k][r] * scl[r] : 0.f);
+    }
+  }
+  if (tid < 32) P.bias[l * WIDTH + n0 + tid] = n0 + tid < nt ? P.b[l][n0 + tid] : 0.f;
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(FT, 1) value_kernel(const __grid_constant__ ValueArgs P) {
+  constexpr int NW = ROWS == 128 ? WIDTH : WIDTH / 2;  // accumulator columns of a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t sA = (raw_addr + 1023u) & ~1023u;
+  uint8_t* gA = smem_raw + (sA - raw_addr);  // the operand panels
+  const uint32_t ring = sA + N_PANELS * PANEL;
+  Slice* tab = reinterpret_cast<Slice*>(gA + N_PANELS * PANEL + N_STAGES * STAGE);
+  float* hpart = reinterpret_cast<float*>(tab + MAX_SLICES);  // [2][64]: the head's halves (ROWS 64)
+
+  const int tid = threadIdx.x, lane = tid & 31, wq = (tid >> 5) & 3, g = tid >> 7;
+  const int r0 = (ROWS == 128 ? g * 64 : 0) + wq * 16 + (lane >> 2);  // rows r0, r0 + 8
+  const int c0 = ROWS == 128 ? 0 : g * NW, cq = 2 * (lane & 3);
+  const uint32_t a_wg = sA + (ROWS == 128 ? g * 64 * 128 : 0);
+  const int L = P.n_layers, mr = P.multires, ns = P.n_slices;
+  const float scale = P.scale, hb = P.bias[(L - 1) * WIDTH];
+  uint8_t* e_panel = gA + 4 * PANEL;
+
+  for (int i = tid; i < ns; i += FT) tab[i] = P.s[i];
+  __syncthreads();
+
+  float acc[NW / 2];
+  uint32_t it = 0;
+  for (int q = 0; q < PREFETCH; ++q) {
+    load_slice(tab, ns, P.w16, q, ring, tid);
+    cp_async_commit();
+  }
+
+  for (int tile = blockIdx.x; tile < P.n_tiles; tile += gridDim.x) {
+    const long p0 = (long)tile * ROWS;
+
+    // the embedding into the e panel
+    for (int item = tid; item < ROWS * (mr + 1); item += FT) {
+      const int row = item / (mr + 1), k = item % (mr + 1);
+      const bool in = p0 + row < P.n;
+      float y[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) y[i] = in ? scale * P.x[(p0 + row) * 3 + i] : 0.f;
+      if (k < mr) {
+        const float f = (float)(1 << k);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          float sn, cs;
+          sincosf(y[i] * f, &sn, &cs);
+          put(e_panel, row, 3 + 6 * k + i, sn);
+          put(e_panel, row, 6 + 6 * k + i, cs);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) put(e_panel, row, i, y[i]);
+        for (int c = 3 + 6 * mr; c < PE_W; ++c) put(e_panel, row, c, 0.f);
+      }
+    }
+    fence_async();
+    __syncthreads();
+
+    // this thread's part of the head's column 0 at rows r0, r0 + 8, over
+    // columns 0..127 and 128..255 apart
+    float u0[2] = {0.f, 0.f}, u1[2] = {0.f, 0.f};
+    for (int l = 0; l < L - 1; ++l) {
+      const VLayer Ly = P.l[l];
+      sweep_gemm<NW>(acc, a_wg, l == 0 ? 4 : 0, l == 0 ? 1 : 4 + Ly.skip, ring, tab, ns, P.w16, it,
+                     tid, c0);
+      if (ROWS == 64) __syncthreads();  // the other warpgroup's products read every column
+      const float* __restrict__ bias = P.bias + l * WIDTH;
+      const bool last = l == L - 2;
+#pragma unroll
+      for (int i4 = 0; i4 < NW / 8; ++i4) {
+        const int col = c0 + i4 * 8 + cq;
+        const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+        float h0, h1, h2, h3, sg;
+        activate(Ly.alpha * acc[4 * i4] + b0, h0, sg);
+        activate(Ly.alpha * acc[4 * i4 + 1] + b1, h1, sg);
+        activate(Ly.alpha * acc[4 * i4 + 2] + b0, h2, sg);
+        activate(Ly.alpha * acc[4 * i4 + 3] + b1, h3, sg);
+        if (!last) {
+          put2(gA, r0, col, h0, h1);
+          put2(gA, r0 + 8, col, h2, h3);
+        } else {
+          const float2 wv = unpack2(__ldg(reinterpret_cast<const unsigned int*>(P.wh + col)));
+          const int hf = ROWS == 128 && i4 >= 16;
+          u0[hf] = fmaf(bf16_round(h1), wv.y, fmaf(bf16_round(h0), wv.x, u0[hf]));
+          u1[hf] = fmaf(bf16_round(h3), wv.y, fmaf(bf16_round(h2), wv.x, u1[hf]));
+        }
+      }
+      if (!last) {
+        fence_async();
+        __syncthreads();
+      }
+    }
+
+    // the head: the four threads of a row hold its 256 columns (ROWS 64:
+    // each warpgroup's four threads one half)
+#pragma unroll
+    for (int m = 1; m < 4; m <<= 1) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        u0[hf] += __shfl_xor_sync(0xffffffffu, u0[hf], m);
+        u1[hf] += __shfl_xor_sync(0xffffffffu, u1[hf], m);
+      }
+    }
+    if (ROWS == 128) {
+      if ((lane & 3) == 0) {
+        if (p0 + r0 < P.n) P.out[p0 + r0] = head_phi((u0[0] + u0[1]) + hb, P.head) / scale;
+        if (p0 + r0 + 8 < P.n) P.out[p0 + r0 + 8] = head_phi((u1[0] + u1[1]) + hb, P.head) / scale;
+      }
+      __syncthreads();  // the next tile's embedding overwrites what the products read
+    } else {
+      if ((lane & 3) == 0) {
+        hpart[g * 64 + r0] = u0[0];
+        hpart[g * 64 + r0 + 8] = u1[0];
+      }
+      __syncthreads();
+      if (tid < 64 && p0 + tid < P.n)
+        P.out[p0 + tid] = head_phi((hpart[tid] + hpart[64 + tid]) + hb, P.head) / scale;
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -2497,7 +2722,47 @@ int backward_x32(const Net& net, const float* x, const float* w, const float* b,
   return (int)cudaGetLastError();
 }
 
+// ----- K5 -----
+
+// Where the packed weights lie: W_l^T [WIDTH x kp] of each hidden layer at
+// t_off[l] (bf16), the head's column 0 at t_off[n - 1], then from w_bytes
+// on the f32 biases, WIDTH a hidden layer, and the head's b[0].
+struct VPack {
+  long t_off[F_MAX_LAYERS];
+  size_t w_bytes, bytes;
+};
+
+// K5 takes the nets K1's "default" sweeps take.
+bool value_layout(const Net& net, int multires, VPack* vp) {
+  if (!sweep_takes(net, multires, 128, 128)) return false;
+  long t = 0;
+  for (int i = 0; i < net.n - 1; ++i) {
+    vp->t_off[i] = t;
+    t += (long)WIDTH * net.l[i].kp;
+  }
+  vp->t_off[net.n - 1] = t;
+  vp->w_bytes = round256(2 * (size_t)(t + WIDTH));
+  vp->bytes = vp->w_bytes + round256(4 * ((size_t)(net.n - 1) * WIDTH + 1));
+  return true;
+}
+
 }  // namespace
+
+// K5's dynamic shared memory limit, set once per device.
+static cudaError_t set_value_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(value_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)VALUE_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(value_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)VALUE_SMEM);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
 
 // The sweeps' dynamic shared memory limits, set once per device (at the
 // first launch, which precedes any graph capture of it), not at every launch.
@@ -2648,6 +2913,92 @@ int fd_backward(const void* x, const void* w, const void* b, int n_layers, const
                                                                        net.w_total, (float*)wbar);
   reduce_kernel<<<(unsigned)((net.b_total + 255) / 256), 256, 0, st>>>(fs.bpart, fs.grid,
                                                                        net.b_total, (float*)bbar);
+  return (int)cudaGetLastError();
+}
+
+// K5. Bytes of the packed weights; 0 if K5 does not take the net.
+size_t fd_value_pack_bytes(int n_layers, const void* dims, int pe_w, int multires) {
+  Net net;
+  VPack vp;
+  if (!make_net(n_layers, (const int*)dims, pe_w, &net) || !value_layout(net, multires, &vp))
+    return 0;
+  return vp.bytes;
+}
+
+// K5's weight pack. v, g, b: n_layers device pointers each (g[l] null: no
+// weight norm), their layers at the true widths n_true[l] out and d0 of the
+// embedding.
+int fd_value_pack(int n_layers, const void* dims, const void* n_true, int d0, int pe_w,
+                  int multires, const void* v, const void* g, const void* b, void* packed,
+                  void* stream) {
+  Net net;
+  VPack vp;
+  if (!make_net(n_layers, (const int*)dims, pe_w, &net) || !value_layout(net, multires, &vp) ||
+      d0 != 3 * (1 + 2 * multires))
+    return cudaErrorInvalidValue;
+  const int* nt = (const int*)n_true;
+  VPackArgs a = {};
+  a.n_layers = n_layers;
+  a.d0 = d0;
+  for (int i = 0; i < n_layers; ++i) {
+    if (nt[i] < 1 || nt[i] > net.l[i].np) return cudaErrorInvalidValue;
+    a.v[i] = ((const float* const*)v)[i];
+    a.g[i] = ((const float* const*)g)[i];
+    a.b[i] = ((const float* const*)b)[i];
+    a.kp[i] = net.l[i].kp;
+    a.n_true[i] = nt[i];
+    a.skip[i] = net.l[i].skip;
+    a.t_off[i] = vp.t_off[i];
+  }
+  a.w16 = (__nv_bfloat16*)packed;
+  a.bias = (float*)((uint8_t*)packed + vp.w_bytes);
+  value_pack_kernel<<<(n_layers - 1) * 8 + 1, 256, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K5. x [n, 3] -> out [n], from fd_value_pack's packed weights; tiles of
+// 128 rows where they fill the SMs, else of 64.
+int fd_value(const void* x, int n, int n_layers, const void* dims, int pe_w, int multires,
+             float scale, int head, const void* packed, void* out, void* stream) {
+  Net net;
+  VPack vp;
+  if (n < 0 || !make_net(n_layers, (const int*)dims, pe_w, &net) ||
+      !value_layout(net, multires, &vp))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  cudaError_t err = set_value_smem();
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  const int tile_rows = (n + 127) / 128 >= sms ? 128 : 64;
+  ValueArgs a = {};
+  a.x = (const float*)x;
+  a.w16 = (const __nv_bfloat16*)packed;
+  a.wh = a.w16 + vp.t_off[n_layers - 1];
+  a.bias = (const float*)((const uint8_t*)packed + vp.w_bytes);
+  a.out = (float*)out;
+  a.n = n;
+  a.n_tiles = (n + tile_rows - 1) / tile_rows;
+  a.n_layers = n_layers;
+  a.multires = multires;
+  a.head = head;
+  a.scale = scale;
+  for (int i = 0; i < n_layers - 1; ++i) {
+    a.l[i].skip = net.l[i].skip;
+    a.l[i].alpha = net.l[i].alpha;
+    for (int j = 0; j < net.l[i].kp / 64; ++j) {
+      if (a.n_slices >= MAX_SLICES) return cudaErrorInvalidValue;
+      Slice& s = a.s[a.n_slices++];
+      s.off = (uint32_t)(vp.t_off[i] + 64 * j);
+      s.ld = (uint16_t)net.l[i].kp;
+      s.rows = WIDTH;
+    }
+  }
+  const int grid = a.n_tiles < sms ? a.n_tiles : sms;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tile_rows == 128)
+    value_kernel<128><<<grid, FT, VALUE_SMEM, st>>>(a);
+  else
+    value_kernel<64><<<grid, FT, VALUE_SMEM, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Building blocks of the row-tile-resident bf16 wgmma sweeps for Hopper
-// (sm_90a), shared by csrc/fused_distance.cu (K1/K2's tier "default") and
-// csrc/nerf_mlp.cu (K4): cp.async and bulk copies, the wgmma wrappers and
+// (sm_90a), shared by csrc/fused_distance.cu (K1/K2's tier "default", K5)
+// and csrc/nerf_mlp.cu (K4): cp.async and bulk copies, the wgmma wrappers and
 // shared-memory descriptors, the 128-byte swizzle of a [128 x 64] bf16
 // operand panel, and the ring of weight slices that feeds a sweep's
 // products (sweep_gemm). ops/build.py rebuilds every library when it changes.
@@ -192,14 +192,16 @@ __device__ __forceinline__ void bulk_reads_done(int tid) {
 }
 
 // acc[64 x N] = A[64 x 64 nk] @ B^T over the next nk slices of the ring; A
-// is this warpgroup's rows of the panels panel0 .. panel0 + nk - 1. Slice
+// is this warpgroup's rows of the panels panel0 .. panel0 + nk - 1, B the
+// N rows of each slice from row b_row0 on. Slice
 // it + PREFETCH is loaded into the stage that slice it - 2 used: every thread
 // has passed wgmma_wait<1> of iteration it - 1 before the barrier, so the
 // products that read it are done (N_STAGES = PREFETCH + 2).
 template <int N>
 __device__ __forceinline__ void sweep_gemm(float* acc, uint32_t a_wg, int panel0, int nk,
                                            uint32_t ring, const Slice* tab, int n_slices,
-                                           const __nv_bfloat16* w16, uint32_t& it, int tid) {
+                                           const __nv_bfloat16* w16, uint32_t& it, int tid,
+                                           int b_row0 = 0) {
   for (int j = 0; j < nk; ++j) {
     cp_async_wait<PREFETCH - 1>();
     fence_async();
@@ -207,7 +209,7 @@ __device__ __forceinline__ void sweep_gemm(float* acc, uint32_t a_wg, int panel0
     __syncthreads();
     load_slice(tab, n_slices, w16, it + PREFETCH, ring, tid);
     cp_async_commit();
-    const uint32_t sb = ring + (it % N_STAGES) * STAGE;
+    const uint32_t sb = ring + (it % N_STAGES) * STAGE + b_row0 * 128;
     const uint32_t sa = a_wg + (panel0 + j) * PANEL;
     wgmma_fence();
 #pragma unroll

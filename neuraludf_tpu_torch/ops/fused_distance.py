@@ -20,6 +20,16 @@ Beside the kernels live two plain versions of the same function:
 The Function takes the explicit version only for tensors on the CPU; a
 CUDA tensor launches the kernels or raises.
 
+K5 (``sampling_distance_fn``, the up-sampling's value-only queries) is
+K1's forward sweep at tier "default" with nothing kept for a reverse pass
+and only the head's column 0: udf alone, for the no-grad rounds that decide
+where samples land. Its pack resolves the weight norm once a render
+(``value_pack``); each pass is one launch (``fused_value``). Where
+``value_kernel_takes`` refuses (the CPU, ``fused_core = "off"``, a
+"sampling" policy other than "bf16", a net the sweeps do not take) the
+passes keep the plain chain; where it takes the net, a CUDA pass launches
+K5 or raises. ``explicit_value`` is K5's roundings in torch.
+
 Tiers (``cfg.fused_precision``), with the JAX package's ``_DOTS``:
 
 * "highest": every product at f32 accuracy; nothing is kept in bf16. Two
@@ -65,9 +75,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..config import UDFNetworkConfig
-from ..nets import fields
+from ..nets import fields, mlp
 from ..nets.mlp import softplus100, weight
-from ..utils.trace import span
+from ..utils.trace import count, span
 from . import build
 
 TILE = 64  # the kernels' column tile; every padded width is a multiple
@@ -522,6 +532,12 @@ def library() -> ctypes.CDLL:
     lib.fd_forward.restype = I
     lib.fd_backward.argtypes = [P, P, P, I, P, I, I, F, I, I, I, I, P, P, P, P, P, P, P, I, P]
     lib.fd_backward.restype = I
+    lib.fd_value_pack_bytes.argtypes = [I, P, I, I]
+    lib.fd_value_pack_bytes.restype = ctypes.c_size_t
+    lib.fd_value_pack.argtypes = [I, P, P, I, I, I, P, P, P, P, P]
+    lib.fd_value_pack.restype = I
+    lib.fd_value.argtypes = [P, I, I, P, I, I, F, I, P, P, P]
+    lib.fd_value.restype = I
     return lib
 
 
@@ -688,3 +704,152 @@ def distance_value_feat_grad_fused(params, x: torch.Tensor, cfg: UDFNetworkConfi
     with span("op.fd_fwd"):
         ws, bs = effective_weights(params, cfg)
         return FusedDistance.apply(x, layout_for(cfg), precision_tier(cfg), *ws, *bs)
+
+
+# ----------------------------------------------------------------------
+# K5: the value-only pass of the up-sampling
+# ----------------------------------------------------------------------
+
+
+def value_kernel_takes(cfg: UDFNetworkConfig, device) -> bool:
+    """Whether the up-sampling's distance queries on ``device`` go through
+    K5: a CUDA device, ``fused_enabled``, the "sampling" policy of
+    ``nets/mlp.py`` at "bf16" (the benchmark's f32 witness sets it to
+    "highest"), and 3-d points into a net the "default" sweeps take."""
+    if torch.device(device).type != "cuda" or mlp.PRECISION_POLICY["sampling"] != "bf16":
+        return False
+    if not fused_enabled(cfg, device) or cfg.d_in != 3 or 0 in cfg.skip_in:
+        return False
+    return cfg.udf_type in HEADS and default_tier_takes(layout_for(cfg))
+
+
+def value_layers(params, cfg: UDFNetworkConfig, device):
+    """[(v or W, g or None, b)] of every linear layer as contiguous float32
+    tensors on ``device`` at the layout's true widths (a strided leaf is
+    copied); ValueError for a tree K5 cannot read."""
+    lay = layout_for(cfg)
+    device = torch.device(device)
+    out = []
+    for l in range(lay.n_layers):
+        p = params.get(f"lin{l}")
+        if not isinstance(p, dict) or "b" not in p or ("v" in p) == ("w" in p):
+            got = sorted(p) if isinstance(p, dict) else type(p).__name__
+            raise ValueError(f"lin{l}: expected the leaves (v, g, b) or (w, b), got {got}")
+        d_in = lay.h_true[l] + (lay.d0 if l == 0 or lay.skip[l] else 0)
+        n = lay.n_true[l]
+        names = ("v", "g", "b") if "v" in p else ("w", None, "b")
+        leaves = []
+        for name, shape in zip(names, ((d_in, n), (n,), (n,))):
+            if name is None:
+                leaves.append(None)
+                continue
+            t = p[name]
+            if t.device == device and t.dtype == torch.float32:
+                t = t.contiguous()
+            _check(t, f"lin{l}.{name}", shape, device)
+            leaves.append(t)
+        out.append(tuple(leaves))
+    return out
+
+
+def explicit_value(x, params, cfg: UDFNetworkConfig):
+    """K5's formulas in torch: udf [N] with every product's operands in
+    bf16 and f32 sums, the biases and softplus100 in f32, and of the head
+    its column 0 alone (K1's value at tier "default")."""
+    lay = layout_for(cfg)
+    W, B = lay.views(*pack(*effective_weights(params, cfg), lay))
+    e, _, _ = _pe(x, lay)
+    h = e
+    for l in range(lay.n_layers - 1):
+        inp = torch.cat([h, e], -1) if lay.skip[l] else (e if l == 0 else h)
+        h = softplus100(_fwd_mm(inp, W[l], lay.alpha(l), "default") + B[l])
+    raw = (_bf16(h) @ _bf16(W[-1][:, :1]))[:, 0] + B[-1][0]
+    return _head(raw, lay)[0]
+
+
+class _ValuePack:
+    """K5's weight pack (``value_pack_kernel``) with its launch count."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, layers, lay: Layout) -> torch.Tensor:
+        """The bf16 W^T slices, the head's column and the f32 biases of
+        ``layers`` (``value_layers``) in one uint8 buffer."""
+        dev = layers[0][0].device
+        if dev.type != "cuda":
+            raise ValueError(f"K5 launches on CUDA tensors only, got {dev}")
+        lib = library()
+        dims = (ctypes.c_int * (4 * lay.n_layers))(*lay.dims())
+        n = lib.fd_value_pack_bytes(lay.n_layers, ctypes.addressof(dims), lay.pe_w, lay.multires)
+        if n == 0:
+            raise ValueError(f"K5 does not take this net: {lay}")
+        n_true = (ctypes.c_int * lay.n_layers)(*lay.n_true)
+        ptrs = [(ctypes.c_void_p * lay.n_layers)(*(t.data_ptr() if t is not None else None
+                                                   for t in col)) for col in zip(*layers)]
+        with torch.cuda.device(dev):
+            packed = torch.empty(n, dtype=torch.uint8, device=dev)
+            rc = lib.fd_value_pack(
+                lay.n_layers, ctypes.addressof(dims), ctypes.addressof(n_true), lay.d0, lay.pe_w,
+                lay.multires, *(ctypes.addressof(p) for p in ptrs), packed.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+            self.launches += 1
+        if rc != 0:
+            raise RuntimeError(f"fd_value_pack failed: CUDA error {rc}")
+        return packed
+
+
+class _Value:
+    """K5 (``value_kernel``) with its launch count: one a pass."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor, packed: torch.Tensor, lay: Layout) -> torch.Tensor:
+        """udf [N] at the points x [N, 3]; the kernel chooses its tile (64
+        or 128 rows) from N."""
+        if x.device.type != "cuda":
+            raise ValueError(f"K5 launches on CUDA tensors only, got {x.device}")
+        if x.dim() != 2 or x.shape[1] != 3:
+            raise ValueError(f"x: expected [N, 3], got {tuple(x.shape)}")
+        _check(x, "x", x.shape, x.device)
+        dev, n = x.device, x.shape[0]
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        if n == 0:
+            return out
+        dims = (ctypes.c_int * (4 * lay.n_layers))(*lay.dims())
+        with torch.cuda.device(dev):
+            rc = library().fd_value(
+                x.data_ptr(), n, lay.n_layers, ctypes.addressof(dims), lay.pe_w, lay.multires,
+                lay.scale, HEADS[lay.head], packed.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+            self.launches += 1
+        if rc != 0:
+            raise RuntimeError(f"fd_value failed: CUDA error {rc}")
+        return out
+
+
+value_pack = _ValuePack()  # K5's pack, once a render
+fused_value = _Value()  # K5
+
+
+def sampling_distance_fn(params, cfg: UDFNetworkConfig):
+    """pts [N, 3] -> udf [N]: the up-sampling's value-only distance queries
+    of one render. Where ``value_kernel_takes``, K5, the weights packed at
+    the first call and reused by every later one (a tree or points it cannot
+    read raise ValueError); else the plain chain at the "sampling" policy
+    (``fields.distance_value``)."""
+    packed: List[torch.Tensor] = []
+
+    def udf(pts: torch.Tensor) -> torch.Tensor:
+        if value_kernel_takes(cfg, pts.device):
+            lay = layout_for(cfg)
+            if not packed:
+                packed.append(value_pack(value_layers(params, cfg, pts.device), lay))
+            count("op.fd_value")
+            return fused_value(pts.contiguous(), packed[0], lay)
+        if pts.is_cuda:
+            count("fd_value.plain")
+        return fields.distance_value(params, pts, cfg, role="sampling")[:, 0]
+
+    return udf

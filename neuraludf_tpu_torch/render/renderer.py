@@ -42,6 +42,7 @@ import torch
 from ..config import ModelConfig
 from ..nets import fields
 from ..numerics import clip, cumprod_nonzero
+from ..ops.fused_distance import sampling_distance_fn
 from ..ops.strip_sample import strip_sample
 from .alpha import sdf2alpha, transmittance_weights, udf2logistic
 from .projector import PatchProjector, camera_inverse
@@ -87,9 +88,10 @@ class UDFRenderer:
         self.projector = PatchProjector(self.rcfg.h_patch_size)
 
     def udf_fn(self, params: Params):
-        """Value-only distance queries of the no-grad up-sampling rounds."""
-        ucfg = self.cfg.udf_network
-        return lambda pts: fields.distance_value(params["udf"], pts, ucfg, role="sampling")[:, 0]
+        """Value-only distance queries of the no-grad up-sampling rounds:
+        kernel K5 on CUDA where it takes the net, else the plain chain
+        (``ops.fused_distance.sampling_distance_fn``)."""
+        return sampling_distance_fn(params["udf"], self.cfg.udf_network)
 
     # -- blending warp sampler -------------------------------------------------
 
@@ -457,11 +459,12 @@ class UDFRenderer:
         if rcfg.n_outside > 0:
             z_vals_outside = far / torch.flip(z_vals_outside, [-1])[None, :] + 1.0 / rcfg.n_samples
 
-        udf_fn = self.udf_fn(params)
+        # each sampler drops its udf_fn on return, and K5's packed weights
+        # with it, before the render core's peak
         if rcfg.n_importance > 0:
             if rcfg.upsampling_type == "classical":
                 z_vals = importance_sample_classical(
-                    udf_fn, rays_o, rays_d, z_vals, sample_dist,
+                    self.udf_fn(params), rays_o, rays_d, z_vals, sample_dist,
                     n_importance=rcfg.n_importance, up_sample_steps=rcfg.up_sample_steps,
                     sdf2alpha_type=rcfg.sdf2alpha_type)
             elif rcfg.upsampling_type == "mix":
@@ -471,7 +474,7 @@ class UDFRenderer:
                         1e-6, 1e6)
                     gamma = torch.clamp(fields.gamma_value(params["beta"]), 1e-6, 1e6)
                 z_vals = importance_sample_mix(
-                    udf_fn, rays_o, rays_d, z_vals, sample_dist, beta, gamma,
+                    self.udf_fn(params), rays_o, rays_d, z_vals, sample_dist, beta, gamma,
                     n_importance=rcfg.n_importance, up_sample_steps=rcfg.up_sample_steps,
                     sdf2alpha_type=rcfg.sdf2alpha_type)
             else:

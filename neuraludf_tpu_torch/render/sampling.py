@@ -3,7 +3,8 @@
 
 Every up-sampling round runs under ``torch.no_grad()``: the rounds only
 decide where samples land. The distance queries inside them are value-only
-MLP evaluations (``role="sampling"``), plain ``torch.matmul``.
+MLP evaluations (``UDFRenderer.udf_fn``: kernel K5 on CUDA, else the plain
+chain at ``role="sampling"``).
 """
 
 from __future__ import annotations

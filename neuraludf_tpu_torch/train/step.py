@@ -258,13 +258,14 @@ def draw_noise(cfg: Config, scene, generator: torch.Generator,
 
 def launch_counters() -> tuple:
     """The kernel entry points whose ``launches`` count the kernels a step
-    launches (K1, K2, K3, the Adam update, K4's forward and backward), and
-    the counts of K1's and K2's routes."""
+    launches (K1, K2, K3, the Adam update, K4's forward and backward, K5 and
+    its pack), and the counts of K1's and K2's routes."""
     from ..ops import adam, fused_distance, nerf_mlp, strip_sample
 
     k1, k2 = fused_distance.fused_forward, fused_distance.fused_backward
     return (k1, k2, strip_sample.strip_sample, adam.fused_adam, nerf_mlp.nerf_forward,
-            nerf_mlp.nerf_backward, *k1.routes.values(), *k2.routes.values())
+            nerf_mlp.nerf_backward, fused_distance.fused_value, fused_distance.value_pack,
+            *k1.routes.values(), *k2.routes.values())
 
 
 N_WARMUP = 2  # eager units of a window's bodies before their capture
